@@ -1,0 +1,134 @@
+"""Packaging contracts of the PyTorch port: it imports no JAX, reads the
+face PNGs without PIL, selects devices without falling back, and its
+kernel wrappers dispatch on the tensor's device."""
+
+import os
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from vn_celeb_face_recognition_tpu_torch.utils import frames as F
+from vn_celeb_face_recognition_tpu_torch.utils import kernels
+from vn_celeb_face_recognition_tpu_torch.utils.device import select_device
+
+REPO_ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+PKG = "vn_celeb_face_recognition_tpu_torch"
+
+
+def _port_modules():
+    mods = []
+    root = os.path.join(REPO_ROOT, PKG)
+    for dirpath, _, files in os.walk(root):
+        for f in sorted(files):
+            if f.endswith(".py"):
+                rel = os.path.relpath(os.path.join(dirpath, f), REPO_ROOT)
+                mod = rel[:-3].replace(os.sep, ".")
+                mods.append(mod[:-len(".__init__")]
+                            if mod.endswith(".__init__") else mod)
+    return sorted(mods)
+
+
+def test_port_imports_without_jax_or_flax():
+    mods = _port_modules()
+    assert f"{PKG}.pipeline.engine" in mods and len(mods) >= 15
+    code = (
+        "import sys\n"
+        "sys.modules['jax'] = None\n"
+        "sys.modules['flax'] = None\n"
+        "import importlib\n"
+        f"for m in {mods!r}:\n"
+        "    importlib.import_module(m)\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'flax', 'vn_celeb_face_recognition_tpu') "
+        "and sys.modules[m] is not None]\n"
+        "assert not bad, bad\n"
+        "print('ok')\n")
+    env = dict(os.environ, PYTHONPATH=REPO_ROOT)
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO_ROOT,
+                          env=env, capture_output=True, text=True,
+                          timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip() == "ok"
+
+
+def test_png_reader_equals_pil():
+    from PIL import Image
+
+    files = F.face_files()
+    assert len(files) == 20
+    for f in files:
+        want = np.asarray(Image.open(f).convert("RGB"))
+        got = F.read_png(f)
+        assert got.dtype == np.uint8
+        np.testing.assert_array_equal(got, want, err_msg=f)
+
+
+def test_build_frames_equals_bench_build_frames():
+    """The PIL-free frames (numpy bicubic resize) are the bench's frames,
+    byte for byte."""
+    sys.path.insert(0, REPO_ROOT)
+    import bench
+
+    for args in ((3, 640, 4), (2, 256, 4, 100)):
+        np.testing.assert_array_equal(F.build_frames(*args),
+                                      bench.build_frames(*args))
+
+
+def test_select_device():
+    assert select_device("cpu") == torch.device("cpu")
+    assert select_device("CPU") == torch.device("cpu")
+    with pytest.raises(ValueError):
+        select_device("tpu")
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is visible; the no-card contract is moot")
+    for name in ("cuda", "cuda:0", "GPU"):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            select_device(name)
+
+
+def test_kernel_build_bookkeeping(tmp_path, monkeypatch):
+    """Sources are hashed for rebuilds; a missing nvcc raises (no
+    fallback); counters reset."""
+    assert {os.path.basename(s) for s in kernels._sources()} >= {
+        "pyramid_pnet.cu", "similarity_warp.cu", "launch.cuh"}
+    digest = kernels.sources_hash()
+    assert digest == kernels.sources_hash() and len(digest) == 64
+    assert set(kernels.launch_counts()) == {"pnet_chain", "similarity_warp"}
+    kernels.count_launch("pnet_chain")
+    assert kernels.launch_counts()["pnet_chain"] >= 1
+    kernels.reset_launch_counts()
+    assert set(kernels.launch_counts().values()) == {0}
+    monkeypatch.setenv("PATH", str(tmp_path))
+    monkeypatch.setenv("CUDA_HOME", str(tmp_path))
+    if not os.path.exists("/usr/local/cuda/bin/nvcc"):
+        with pytest.raises(RuntimeError, match="nvcc not found"):
+            kernels.find_nvcc()
+
+
+def test_kernel_wrappers_never_fall_back():
+    """The wrappers take the plain versions only for CPU tensors: the
+    kernel entry points refuse CPU tensors before touching the library,
+    and a tensor on any other non-CUDA device raises."""
+    from vn_celeb_face_recognition_tpu_torch.models.mtcnn import PNet
+    from vn_celeb_face_recognition_tpu_torch.ops import pyramid_pnet as K2
+    from vn_celeb_face_recognition_tpu_torch.ops import warp as K1
+
+    windows = torch.zeros((2, 16, 16, 3))
+    mats = torch.tensor([[[1.0, 0.0, 0.0], [0.0, 1.0, 0.0]]] * 2)
+    planes = [torch.zeros((1, 3, 30, 30))]
+    before = kernels.launch_counts()
+    with pytest.raises(ValueError, match="must be a CUDA tensor"):
+        K1.similarity_warp_kernel(windows, mats, 8)
+    with pytest.raises(ValueError, match="must be a CUDA tensor"):
+        K2.pnet_chain_kernel(PNet(), planes)
+    with pytest.raises(ValueError, match="unsupported device"):
+        K1.similarity_warp(windows.to("meta"), mats.to("meta"), 8)
+    with pytest.raises(ValueError, match="unsupported device"):
+        K2.pnet_chain(PNet(), [p.to("meta") for p in planes])
+    assert kernels.launch_counts() == before
+    assert K1.similarity_warp(windows, mats, 8).shape == (2, 8, 8, 3)
+    assert kernels.launch_counts() == before
