@@ -105,7 +105,7 @@ def setup():
     ref = jax_composition(frames, jdet, enc_vars, clf_vars, FACE_CAP)
 
     def engine(face_cap=FACE_CAP, **kw):
-        return TEngine(TM.MTCNN(**DET), enc, clf, target_fs=112,
+        return TEngine(TM.MTCNN(device="cpu", **DET), enc, clf, target_fs=112,
                        face_cap=face_cap, **kw)
 
     return frames, engine, ref, (jdet, enc_vars, clf_vars)

@@ -33,7 +33,7 @@ CAPS = dict(pnet_cap_per_scale=128, cross_cap=256,
 def nets():
     jvars = JM.load_mtcnn_variables()
     assert jvars is not None
-    det = TM.MTCNN(min_face_size=50, **CAPS)
+    det = TM.MTCNN(min_face_size=50, device="cpu", **CAPS)
     return jvars, det
 
 
@@ -150,7 +150,7 @@ def test_detect_padded_matches_jax_cascade(min_face_size):
     jdet = JM.MTCNN(fused_pyramid_pnet=True, **kw)
     want = [np.asarray(a) for a in jdet._build_detect_fn(2, 256, 256)(
         jdet.variables, jnp.asarray(frames))]
-    tdet = TM.MTCNN(**kw)
+    tdet = TM.MTCNN(device="cpu", **kw)
     got = [a.numpy() for a in tdet.detect_padded(torch.from_numpy(frames))]
     boxes, scores, points, valid, sat = got
     assert valid.sum() >= 6
@@ -174,12 +174,13 @@ def test_detect_padded_matches_jax_cascade(min_face_size):
 def test_capacity_profile_and_scales_match_jax():
     for kw in (dict(min_face_size=50, **CAPS), dict(min_face_size=20)):
         jdet = JM.MTCNN(**kw)
-        tdet = TM.MTCNN(**kw)
+        tdet = TM.MTCNN(device="cpu", **kw)
         for hw in ((640, 640), (1080, 1920), (256, 300)):
             assert tdet.capacity_profile(*hw) == jdet.capacity_profile(*hw)
             assert tdet._scales(*hw) == jdet._scales(*hw)
     sat = np.array([448, 10, 10, 10, 64], np.int32)
     with pytest.warns(RuntimeWarning, match="capacity saturated"):
-        hit = TM.MTCNN(min_face_size=20).warn_capacity_saturation(
+        hit = TM.MTCNN(min_face_size=20,
+                       device="cpu").warn_capacity_saturation(
             sat, hw=(640, 640))
     assert [h[0] for h in hit] == ["pnet_cap_per_scale", "out_cap"]

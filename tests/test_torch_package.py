@@ -35,6 +35,10 @@ def _port_modules():
 def test_port_imports_without_jax_or_flax():
     mods = _port_modules()
     assert f"{PKG}.pipeline.engine" in mods and len(mods) >= 15
+    for mod in ("models.retinaface", "models.iresnet",
+                "models.resnet_2_branch", "ops.planar_s1",
+                "ops.emotion_stem", "ops.bottleneck"):
+        assert f"{PKG}.{mod}" in mods
     code = (
         "import sys\n"
         "sys.modules['jax'] = None\n"
@@ -94,12 +98,21 @@ def test_kernel_build_bookkeeping(tmp_path, monkeypatch):
     """Sources are hashed for rebuilds; a missing nvcc raises (no
     fallback); counters reset."""
     assert {os.path.basename(s) for s in kernels._sources()} >= {
-        "pyramid_pnet.cu", "similarity_warp.cu", "launch.cuh"}
+        "pyramid_pnet.cu", "similarity_warp.cu", "mnet_stage1.cu",
+        "emotion_stem.cu", "bottleneck_chain.cu", "launch.cuh"}
     digest = kernels.sources_hash()
     assert digest == kernels.sources_hash() and len(digest) == 64
-    assert set(kernels.launch_counts()) == {"pnet_chain", "similarity_warp"}
+    assert set(kernels.launch_counts()) == {
+        "pnet_chain", "similarity_warp", "mnet_stage1", "emotion_stem",
+        "bottleneck_chain"}
+    assert set(kernels.SIGNATURES) == {
+        "vn_similarity_warp", "vn_pnet_chain", "vn_mnet_stage1",
+        "vn_emotion_stem", "vn_bottleneck_block"}
     kernels.count_launch("pnet_chain")
     assert kernels.launch_counts()["pnet_chain"] >= 1
+    before = kernels.launch_counts()["mnet_stage1"]
+    kernels.count_launch("mnet_stage1", 3)  # one per grid launched
+    assert kernels.launch_counts()["mnet_stage1"] == before + 3
     kernels.reset_launch_counts()
     assert set(kernels.launch_counts().values()) == {0}
     monkeypatch.setenv("PATH", str(tmp_path))
@@ -132,3 +145,62 @@ def test_kernel_wrappers_never_fall_back():
     assert kernels.launch_counts() == before
     assert K1.similarity_warp(windows, mats, 8).shape == (2, 8, 8, 3)
     assert kernels.launch_counts() == before
+
+
+def test_new_kernel_wrappers_never_fall_back():
+    """K6, K7 and K8: the kernel entry points refuse CPU tensors before
+    touching the library, a non-CUDA, non-CPU tensor raises, and CPU
+    tensors take the plain versions without counting a launch."""
+    from vn_celeb_face_recognition_tpu_torch.models.resnet_2_branch import (
+        ResNet2Branch,
+    )
+    from vn_celeb_face_recognition_tpu_torch.models.retinaface import (
+        RetinaFaceNet,
+    )
+    from vn_celeb_face_recognition_tpu_torch.ops import bottleneck as K8
+    from vn_celeb_face_recognition_tpu_torch.ops import emotion_stem as K7
+    from vn_celeb_face_recognition_tpu_torch.ops import planar_s1 as K6
+
+    stage1 = RetinaFaceNet().body.stage1.eval()
+    emo = ResNet2Branch(layers=(2, 2, 1, 1), num_classes=3).eval()
+    frames = torch.zeros((1, 24, 40, 3), dtype=torch.uint8)
+    faces = torch.zeros((2, 112, 112, 3))
+    blocks = list(emo.layer1)[1:]
+    x = torch.zeros((1, 6, 5, 256))
+    sub = (104.0, 117.0, 123.0)
+    calls = (
+        (K6.mnet_stage1_kernel, K6.mnet_stage1,
+         lambda f, t: f(stage1, t, sub, torch.float32), frames),
+        (K7.emotion_stem_kernel, K7.emotion_stem,
+         lambda f, t: f(emo.conv1, emo.bn1, t, torch.float32), faces),
+        (K8.bottleneck_chain_kernel, K8.bottleneck_chain,
+         lambda f, t: f(blocks, t), x),
+    )
+    before = kernels.launch_counts()
+    for kernel, wrapper, call, t in calls:
+        with pytest.raises(ValueError, match="must be a CUDA tensor"):
+            call(kernel, t)
+        with pytest.raises(ValueError, match="unsupported device"):
+            call(wrapper, t.to("meta"))
+        assert call(wrapper, t).device.type == "cpu"
+    assert kernels.launch_counts() == before
+    assert K6.mnet_stage1(stage1, frames, sub, torch.float32).shape == (
+        1, 3, 5, 64)
+
+
+def test_detectors_default_to_the_card():
+    """MTCNN and RetinaFace run on the card unless the CPU is asked
+    for: with no card visible, constructing either with no device
+    raises instead of falling back."""
+    from vn_celeb_face_recognition_tpu_torch.models.mtcnn import MTCNN
+    from vn_celeb_face_recognition_tpu_torch.models.retinaface import (
+        RetinaFace,
+    )
+
+    assert MTCNN(device="cpu").device == torch.device("cpu")
+    assert RetinaFace(device="cpu").device == torch.device("cpu")
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is visible; the no-card contract is moot")
+    for detector in (MTCNN, RetinaFace):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            detector()

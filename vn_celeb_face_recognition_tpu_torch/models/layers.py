@@ -6,6 +6,7 @@ the functional helpers cast each parameter to the activation dtype at
 use (BatchNorm keeps its f32 statistics, as flax does).
 """
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
@@ -17,7 +18,7 @@ def _cast(p, dtype):
 
 def conv(m: nn.Conv2d, x):
     return F.conv2d(x, _cast(m.weight, x.dtype), _cast(m.bias, x.dtype),
-                    m.stride, m.padding)
+                    m.stride, m.padding, m.dilation, m.groups)
 
 
 def linear(m: nn.Linear, x):
@@ -53,6 +54,17 @@ class BasicConv2d(nn.Module):
 
     def forward(self, x):
         return F.relu(batch_norm(self.bn, conv(self.conv, x)))
+
+
+def load_npz(net, path):
+    """Load a torch-keyed npz state_dict into ``net`` (strict; a
+    DataParallel ``module.`` prefix is dropped)."""
+    with np.load(path) as z:
+        sd = {k.removeprefix("module."):
+              torch.from_numpy(np.array(z[k], dtype=np.float32))
+              for k in z.files}
+    net.load_state_dict(sd, strict=True)
+    return net
 
 
 def seeded_init_(module, generator):

@@ -23,7 +23,8 @@ from torch import nn
 from ..ops import boxes as B
 from ..ops.image import grouped_crop_area_resize
 from ..ops.pyramid_pnet import normalize, pyramid_pnet
-from .layers import conv, linear, max_pool_ceil, prelu
+from ..utils.device import select_device
+from .layers import conv, linear, load_npz, max_pool_ceil, prelu
 
 _REPO_ROOT = os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
@@ -127,15 +128,6 @@ class ONet(nn.Module):
         return b, c, a
 
 
-def load_net(net, path):
-    """Load a torch-keyed npz state_dict into ``net`` (strict)."""
-    with np.load(path) as z:
-        sd = {k: torch.from_numpy(np.array(z[k], dtype=np.float32))
-              for k in z.files}
-    net.load_state_dict(sd, strict=True)
-    return net
-
-
 # ---------------------------------------------------------------------------
 # Cascade box math
 # ---------------------------------------------------------------------------
@@ -203,7 +195,8 @@ class MTCNN:
 
     Constructor arguments mirror the JAX package's ``MTCNN``; ``dtype``
     is the compute dtype of RNet/ONet (stage 1 is always f32) and
-    ``device`` where the nets live.
+    ``device`` where the nets live: the card unless ``"cpu"`` is asked
+    for (a missing card raises).
     """
 
     _BASE_CAPS = {
@@ -219,7 +212,7 @@ class MTCNN:
     def __init__(self, min_face_size=20, thresholds=(0.6, 0.7, 0.7),
                  factor=0.709, pnet_cap_per_scale=None,
                  cross_cap=None, rnet_cap=None, onet_cap=None, out_cap=64,
-                 dtype=torch.float32, device="cpu"):
+                 dtype=torch.float32, device="cuda"):
         self.min_face_size = min_face_size
         self.thresholds = tuple(thresholds)
         self.factor = factor
@@ -229,10 +222,10 @@ class MTCNN:
         self.onet_cap = onet_cap
         self.out_cap = out_cap
         self.dtype = dtype
-        self.device = torch.device(device)
-        self.pnet = load_net(PNet(), os.path.join(WEIGHTS_DIR, "pnet.npz"))
-        self.rnet = load_net(RNet(), os.path.join(WEIGHTS_DIR, "rnet.npz"))
-        self.onet = load_net(ONet(), os.path.join(WEIGHTS_DIR, "onet.npz"))
+        self.device = select_device(device)
+        self.pnet = load_npz(PNet(), os.path.join(WEIGHTS_DIR, "pnet.npz"))
+        self.rnet = load_npz(RNet(), os.path.join(WEIGHTS_DIR, "rnet.npz"))
+        self.onet = load_npz(ONet(), os.path.join(WEIGHTS_DIR, "onet.npz"))
         for net in (self.pnet, self.rnet, self.onet):
             net.to(self.device).eval()
         self._last_caps = None

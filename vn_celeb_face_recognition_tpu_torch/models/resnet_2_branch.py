@@ -1,0 +1,53 @@
+"""2-branch emotion ResNet-50: class head (emotion tags) + projection.
+
+Counterpart of ``vn_celeb_face_recognition_tpu/models/resnet_2_branch.py``
+with torch's keys: a ResNet-50 trunk, a global mean over the 7x7 map,
+then two f32 linear heads, ``fc`` (``num_classes`` tags) and ``proj``
+(300-d).
+
+``forward(faces)`` takes [K, 112, 112, 3] aligned faces in 0-255 and
+returns (x_cls, x_proj): the JAX net's ``apply`` on
+``imagenet_normalize(area_resize(faces, 224) / 255)``. The resize,
+normalisation and stem run as kernel K7 (``ops.emotion_stem``); layer1's
+blocks 1-2 and layer2's blocks 1-3 run as kernel K8 (``ops.bottleneck``);
+block 0 of each layer, layer3/4 and the heads are cuDNN/cuBLAS.
+"""
+
+import torch
+from torch import nn
+
+from ..ops.bottleneck import bottleneck_chain
+from ..ops.emotion_stem import emotion_stem
+from .layers import linear
+from .resnet_common import ResLayer
+
+
+class ResNet2Branch(nn.Module):
+    def __init__(self, layers=(3, 4, 6, 3), num_classes=1000,
+                 dtype=torch.float32):
+        super().__init__()
+        self.dtype = dtype
+        self.layers = tuple(layers)
+        self.conv1 = nn.Conv2d(3, 64, 7, 2, 3, bias=False)
+        self.bn1 = nn.BatchNorm2d(64)
+        self.layer1 = ResLayer(64, layers[0], 1, 64)
+        self.layer2 = ResLayer(128, layers[1], 2, 256)
+        self.layer3 = ResLayer(256, layers[2], 2, 512)
+        self.layer4 = ResLayer(512, layers[3], 2, 1024)
+        self.fc = nn.Linear(2048, num_classes)
+        self.proj = nn.Linear(2048, 300)
+
+    def forward(self, faces):
+        x = emotion_stem(self.conv1, self.bn1, faces, self.dtype)
+        x = x.permute(0, 3, 1, 2)
+        for layer in (self.layer1, self.layer2):
+            x = layer[0](x)
+            x = bottleneck_chain(list(layer)[1:], x.permute(0, 2, 3, 1))
+            x = x.permute(0, 3, 1, 2)
+        x = self.layer4(self.layer3(x))
+        x = x.to(torch.float32).mean(dim=(2, 3))
+        return linear(self.fc, x), linear(self.proj, x)
+
+
+def resnet_2branch_50(**kwargs):
+    return ResNet2Branch(layers=(3, 4, 6, 3), **kwargs)

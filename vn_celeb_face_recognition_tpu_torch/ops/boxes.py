@@ -4,6 +4,9 @@ Counterpart of ``vn_celeb_face_recognition_tpu/ops/boxes.py``. Every
 candidate set is padded to a fixed K with a validity mask.
 """
 
+import math
+
+import numpy as np
 import torch
 
 
@@ -115,3 +118,46 @@ def clamp_boxes(boxes, width, height):
     x2 = torch.clamp(b[..., 2], max=float(width))
     y2 = torch.clamp(b[..., 3], max=float(height))
     return torch.stack([x1, y1, x2, y2], dim=-1)
+
+
+# ---------------------------------------------------------------------------
+# SSD-style priors (RetinaFace anchors) and their decode
+# ---------------------------------------------------------------------------
+
+
+def make_priors(image_size, min_sizes, steps, clip=False):
+    """Prior boxes (cx, cy, w, h), normalised, as a [N, 4] f32 ndarray:
+    cell-major, min-size-minor within each stride level."""
+    im_h, im_w = image_size
+    levels = []
+    for k, step in enumerate(steps):
+        fm_h, fm_w = math.ceil(im_h / step), math.ceil(im_w / step)
+        ii, jj = np.meshgrid(np.arange(fm_h, dtype=np.float32),
+                             np.arange(fm_w, dtype=np.float32),
+                             indexing="ij")
+        cx = (jj + 0.5) * step / im_w
+        cy = (ii + 0.5) * step / im_h
+        per_size = [np.stack([cx, cy, np.full_like(cx, m / im_w),
+                              np.full_like(cy, m / im_h)],
+                             axis=-1).reshape(-1, 4)
+                    for m in min_sizes[k]]
+        levels.append(np.stack(per_size, axis=1).reshape(-1, 4))
+    priors = np.concatenate(levels, axis=0).astype(np.float32)
+    return np.clip(priors, 0.0, 1.0) if clip else priors
+
+
+def decode_boxes(loc, priors, variances):
+    """SSD box offsets [..., 4] against priors (cx, cy, w, h) -> xyxy in
+    [0, 1]."""
+    centers = priors[..., :2] + loc[..., :2] * variances[0] * priors[..., 2:]
+    sizes = priors[..., 2:] * torch.exp(loc[..., 2:] * variances[1])
+    tl = centers - sizes / 2.0
+    return torch.cat([tl, tl + sizes], dim=-1)
+
+
+def decode_landmarks(pre, priors, variances):
+    """5-point landmark offsets [..., 10] -> [..., 10] in [0, 1]."""
+    pts = pre.reshape(pre.shape[:-1] + (5, 2))
+    out = (priors[..., None, :2]
+           + pts * variances[0] * priors[..., None, 2:])
+    return out.reshape(pre.shape)

@@ -233,3 +233,14 @@ def warp_affine(img, m, out_hw, border_value=0.0):
 def fixed_image_standardization(x):
     """(x - 127.5) / 128."""
     return (x - 127.5) / 128.0
+
+
+IMAGENET_MEAN = (0.485, 0.456, 0.406)
+IMAGENET_STD = (0.229, 0.224, 0.225)
+
+
+def imagenet_normalize(x):
+    """NHWC float in [0, 1] -> ImageNet-normalised, in x's dtype."""
+    mean = torch.tensor(IMAGENET_MEAN, dtype=x.dtype, device=x.device)
+    std = torch.tensor(IMAGENET_STD, dtype=x.dtype, device=x.device)
+    return (x - mean) / std

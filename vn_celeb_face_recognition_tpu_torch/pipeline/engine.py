@@ -4,18 +4,23 @@ classify over a [B, H, W, 3] uint8 chunk, on one device, eagerly.
 Counterpart of ``vn_celeb_face_recognition_tpu/pipeline/engine.py``
 (``FusedRecognitionEngine``):
 
-  1. the MTCNN cascade gives padded boxes, landmarks and validity
-     (stage 1 through kernel K2);
+  1. the detector gives padded boxes, landmarks and validity: the MTCNN
+     cascade (stage 1 through kernel K2) or RetinaFace (stage 1 through
+     kernel K6);
   2. compaction keeps the top ``face_cap`` slots of the chunk by
      (validity, score);
   3. each face gets a fixed window cut around its box, a Umeyama solve
      onto the canonical template, and a similarity warp to a
      ``target_fs`` face (kernel K1);
   4. standardisation, the embedding encoder and the MLP give
-     log-probabilities, the class and its probability; results scatter
-     back to the padded layout.
+     log-probabilities, the class and its probability;
+  5. optionally the emotion head: the 112 px faces resized to 224,
+     ImageNet-normalised and through the 2-branch net (the resize,
+     normalisation and stem in kernel K7, the layer1/layer2 tails in
+     kernel K8), softmax and the top ``emotion_topk`` tags;
 
-``identify`` turns the padded outputs into per-frame names on the host.
+and results scatter back to the padded layout. ``identify`` turns the
+padded outputs into per-frame names on the host.
 """
 
 import warnings
@@ -33,7 +38,10 @@ class FusedRecognitionEngine:
     """detect + align + embed + classify for fixed-shape frame chunks.
 
     Args:
-      detector: ``models.mtcnn.MTCNN``; the engine runs on its device.
+      detector: ``models.mtcnn.MTCNN`` or ``models.retinaface.RetinaFace``
+        (any object with ``device``, ``out_cap`` and ``detect_padded``
+        returning (boxes, scores, points, valid[, sat_counts])); the
+        engine runs on its device.
       encoder: embedding ``nn.Module`` taking NCHW standardised faces.
       classifier: ``nn.Module`` mapping embeddings to log-probabilities.
       target_fs: aligned face size.
@@ -47,11 +55,16 @@ class FusedRecognitionEngine:
       batch_multiple: chunks are padded with blank frames up to a
         multiple of this (a ragged tail chunk keeps the shapes of full
         chunks); outputs are sliced back.
+      emotion: optional ``models.resnet_2_branch.ResNet2Branch`` run on
+        the faces at 224 px (``target_fs`` must be 112); adds
+        ``emotion_idx`` and ``emotion_prob`` [B, K, emotion_topk].
+      emotion_topk: emotion tags kept per face.
     """
 
     def __init__(self, detector, encoder, classifier, target_fs=112,
                  compute_dtype=torch.float32, face_window=224,
-                 face_cap=None, face_hint=None, batch_multiple=1):
+                 face_cap=None, face_hint=None, batch_multiple=1,
+                 emotion=None, emotion_topk=6):
         self.detector = detector
         self.device = detector.device
         self.encoder = encoder.to(self.device).eval()
@@ -70,6 +83,13 @@ class FusedRecognitionEngine:
             self.face_buckets = [int(face_cap)]
         self._face_hint = None if face_hint is None else int(face_hint)
         self.batch_multiple = int(batch_multiple)
+        if emotion is not None and self.target_fs != 112:
+            raise ValueError("the emotion head takes 112 px faces (resized "
+                             f"to 224 inside it), got target_fs "
+                             f"{self.target_fs}")
+        self.emotion = (None if emotion is None
+                        else emotion.to(self.device).eval())
+        self.emotion_topk = int(emotion_topk)
 
     @property
     def face_cap(self):
@@ -95,7 +115,10 @@ class FusedRecognitionEngine:
 
     @torch.no_grad()
     def _run(self, frames, face_cap):
-        boxes, score, points, valid, sat = self.detector.detect_padded(frames)
+        det_out = self.detector.detect_padded(frames)
+        boxes, score, points, valid = det_out[:4]
+        # MTCNN adds its per-stage saturation counts as a 5th output
+        sat = det_out[4] if len(det_out) > 4 else None
         b, k = boxes.shape[:2]
         h, w = frames.shape[1:3]
         dev = boxes.device
@@ -136,24 +159,26 @@ class FusedRecognitionEngine:
         logp = self.classifier(emb)
         pred = torch.argmax(logp, dim=-1)
         prob = torch.exp(torch.gather(logp, 1, pred[:, None])[:, 0])
-        if sel is not None:
-            # scatter compacted results back to the padded layout
-            pred = torch.zeros(b * k, dtype=pred.dtype,
-                               device=dev).index_copy(0, sel, pred)
-            prob = torch.zeros(b * k, dtype=prob.dtype,
-                               device=dev).index_copy(0, sel, prob)
-            emb = torch.zeros((b * k, emb.shape[-1]), dtype=emb.dtype,
-                              device=dev).index_copy(0, sel, emb)
-        out = {
-            "boxes": boxes,
-            "scores": score,
-            "points": points,
-            "valid": valid,
-            "pred": pred.reshape(b, k),
-            "prob": prob.reshape(b, k),
-            "embeddings": emb.reshape(b, k, -1),
-            "sat_counts": sat,
-        }
+        per_face = {"pred": pred, "prob": prob, "embeddings": emb}
+        if self.emotion is not None:
+            logits, _ = self.emotion(faces)
+            eprob = torch.softmax(logits.to(torch.float32), dim=-1)
+            # stable descending sort: ties keep the lower index first,
+            # as jax.lax.top_k does (torch.topk leaves them unordered)
+            top_p, top_idx = torch.sort(eprob, dim=-1, descending=True,
+                                        stable=True)
+            per_face["emotion_idx"] = top_idx[:, :self.emotion_topk]
+            per_face["emotion_prob"] = top_p[:, :self.emotion_topk]
+        out = {"boxes": boxes, "scores": score, "points": points,
+               "valid": valid}
+        for name, v in per_face.items():
+            if sel is not None:
+                # scatter compacted results back to the padded layout
+                v = torch.zeros((b * k,) + v.shape[1:], dtype=v.dtype,
+                                device=dev).index_copy(0, sel, v)
+            out[name] = v.reshape((b, k) + v.shape[1:])
+        if sat is not None:
+            out["sat_counts"] = sat
         if overflow is not None:
             out["face_cap_overflow"] = overflow
         return out
@@ -211,15 +236,19 @@ class FusedRecognitionEngine:
 
     def identify(self, outputs, names, threshold):
         """Host post-pass: padded predictions -> per frame (names, boxes)
-        of the valid faces. ``names`` maps label -> name; ``threshold``
-        is a float or a per-class dict keyed by ``str(label)``; a face
-        under its threshold, or with an unknown label, is "Unknown"."""
+        of the valid faces, or (names, boxes, emotion_idx, emotion_prob)
+        when the emotion head ran. ``names`` maps label -> name;
+        ``threshold`` is a float or a per-class dict keyed by
+        ``str(label)``; a face under its threshold, or with an unknown
+        label, is "Unknown"."""
         outputs = dict(outputs)
         cap_used = outputs.pop("_face_cap_used", None)
         frame_hw = outputs.pop("_frame_hw", None)
         outs = {k: v.cpu().numpy() for k, v in outputs.items()}
-        self.detector.warn_capacity_saturation(outs["sat_counts"],
-                                               hw=frame_hw)
+        if "sat_counts" in outs and hasattr(self.detector,
+                                            "warn_capacity_saturation"):
+            self.detector.warn_capacity_saturation(outs["sat_counts"],
+                                                   hw=frame_hw)
         overflow = int(outs.get("face_cap_overflow", 0))
         if self.face_buckets:
             self._face_hint = int(outs["valid"].sum())
@@ -230,9 +259,11 @@ class FusedRecognitionEngine:
                 "faces were dropped; raise face_cap or use "
                 "process_adaptive() for a re-run at the next bucket.",
                 stacklevel=2)
+        has_emotion = "emotion_idx" in outs
         results = []
         for i in range(outs["valid"].shape[0]):
             frame_names, frame_boxes = [], []
+            emotion_idx, emotion_prob = [], []
             for j in np.nonzero(outs["valid"][i])[0]:
                 pred = int(outs["pred"][i][j])
                 prob = float(outs["prob"][i][j])
@@ -241,5 +272,12 @@ class FusedRecognitionEngine:
                 frame_names.append("Unknown" if prob < thr
                                    else names.get(pred, "Unknown"))
                 frame_boxes.append(outs["boxes"][i][j])
-            results.append((frame_names, frame_boxes))
+                if has_emotion:
+                    emotion_idx.append(outs["emotion_idx"][i][j])
+                    emotion_prob.append(outs["emotion_prob"][i][j])
+            if has_emotion:
+                results.append((frame_names, frame_boxes, emotion_idx,
+                                emotion_prob))
+            else:
+                results.append((frame_names, frame_boxes))
         return results

@@ -1,16 +1,17 @@
 """Build, load and count the hand-written CUDA kernels.
 
 Every ``csrc/*.cu`` file is compiled with ``nvcc`` for Hopper
-(``sm_90a``) into one shared library with a plain C interface,
+(``sm_90a``), one compiler process per file, all at once, and linked
+into one shared library with a plain C interface,
 ``csrc/build/libvnkernels.so``, the first time a kernel is launched. The
 library is rebuilt when the hash of the sources changes. ``nvcc`` is
 taken from ``PATH``, else from ``$CUDA_HOME/bin``, else from
 ``/usr/local/cuda/bin``. A missing compiler or a failed build raises with
 the compiler's output; nothing falls back to another implementation.
 
-Each kernel wrapper counts its launches (``count_launch``) right where
-it launches its kernel and nowhere else, so a run can show that the main
-path really went through the kernels.
+Each kernel wrapper counts its launches (``count_launch``), one per grid
+the card runs, right where it launches its kernel and nowhere else, so a
+run can show that the main path really went through the kernels.
 """
 
 import ctypes
@@ -29,21 +30,35 @@ ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_NP = ctypes.POINTER(ctypes.c_int)
 # C entry points: name -> argtypes. Pointers and the stream are c_void_p,
 # ints are c_int; every function returns cudaGetLastError() as an int.
+# Entry points that launch more than one kernel write how many they
+# launched to a trailing int*.
 SIGNATURES = {
     # windows, mats, out, K, N, out_size, stream
     "vn_similarity_warp": [_P, _P, _P, _I, _I, _I, _P],
     # levels, table, weights, probs, reg, n_levels, n_tiles, stream
     "vn_pnet_chain": [_P, _P, _P, _P, _P, _I, _I, _P],
+    # frames, weights, out, scratch1, scratch2, B, H, W, out_bf16, stream,
+    # launches
+    "vn_mnet_stage1": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _NP],
+    # faces, weights, out, K, out_bf16, stream
+    "vn_emotion_stem": [_P, _P, _P, _I, _I, _P],
+    # x, w1, b1, w2, b2, w3, b3, out, t1, t2, N, H, W, C, P, bf16, stream,
+    # launches
+    "vn_bottleneck_block": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                            _I, _I, _I, _I, _I, _I, _P, _NP],
 }
 
 
-_LAUNCHES = {"pnet_chain": 0, "similarity_warp": 0}
+_LAUNCHES = {"pnet_chain": 0, "similarity_warp": 0, "mnet_stage1": 0,
+             "emotion_stem": 0, "bottleneck_chain": 0}
 
 
-def count_launch(name):
-    _LAUNCHES[name] += 1
+def count_launch(name, n=1):
+    """Add ``n`` kernel launches of ``name`` (one per grid launched)."""
+    _LAUNCHES[name] += n
 
 
 def reset_launch_counts():
@@ -86,8 +101,9 @@ def sources_hash():
 
 def build(verbose=False):
     """Compile ``csrc/*.cu`` into ``csrc/build/libvnkernels.so`` unless
-    a library built from the same sources exists. Returns
-    (library path, seconds spent compiling; 0.0 when it was current)."""
+    a library built from the same sources exists: one ``nvcc -c`` per
+    source, all started together, then one link. Returns (library path,
+    seconds spent compiling; 0.0 when it was current)."""
     lib_path = os.path.join(BUILD_DIR, LIB_NAME)
     stamp = os.path.join(BUILD_DIR, LIB_NAME + ".sha256")
     digest = sources_hash()
@@ -97,19 +113,39 @@ def build(verbose=False):
                 return lib_path, 0.0
     os.makedirs(BUILD_DIR, exist_ok=True)
     nvcc = find_nvcc()
-    tmp = f"{lib_path}.{os.getpid()}.tmp"
-    cmd = [nvcc, *ARCH_FLAGS, "-std=c++17", "-O3", "-shared",
-           "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-o", tmp,
-           *[s for s in _sources() if s.endswith(".cu")]]
+    tag = f"{os.getpid()}.tmp"
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
+    jobs = []
+    for src in (s for s in _sources() if s.endswith(".cu")):
+        obj = os.path.join(BUILD_DIR, f"{os.path.basename(src)}.{tag}.o")
+        cmd = [nvcc, *ARCH_FLAGS, "-std=c++17", "-O3", "-c",
+               "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-o", obj, src]
+        jobs.append((cmd, obj, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True)))
+    logs, failed = [], []
+    for cmd, _, proc in jobs:
+        out, _ = proc.communicate()
+        logs.append(out)
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed ({proc.returncode}): "
+                          f"{' '.join(cmd)}\n{out}")
+    tmp = f"{lib_path}.{tag}"
+    if not failed:
+        cmd = [nvcc, *ARCH_FLAGS, "-shared", "-o", tmp,
+               *[obj for _, obj, _ in jobs]]
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        if proc.returncode != 0:
+            failed.append(f"link failed ({proc.returncode}): "
+                          f"{' '.join(cmd)}\n{proc.stdout}{proc.stderr}")
+    for _, obj, _ in jobs:
+        if os.path.exists(obj):
+            os.remove(obj)
     seconds = time.perf_counter() - t0
-    if proc.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n"
-            f"{proc.stdout}\n{proc.stderr}")
+    if failed:
+        raise RuntimeError("\n".join(failed))
     if verbose:
-        print(proc.stdout + proc.stderr)
+        print("".join(logs))
     os.replace(tmp, lib_path)
     with open(stamp, "w") as fh:
         fh.write(digest)
@@ -133,6 +169,22 @@ def library():
                 fn.restype = ctypes.c_int
             _LIB = lib
         return _LIB
+
+
+def cached_fold(modules, tag, fold):
+    """``fold()`` (host-side weight folding for a kernel), cached on the
+    first of ``modules`` under ``tag`` until a parameter or buffer of any
+    of them is written again (``load_state_dict``, ``copy_``, ``to``)."""
+    if not isinstance(modules, (list, tuple)):
+        modules = (modules,)
+    state = tuple((id(t), t._version) for m in modules
+                  for t in (*m.parameters(), *m.buffers()))
+    cache = modules[0].__dict__.setdefault("_kernel_folds", {})
+    hit = cache.get(tag)
+    if hit is None or hit[0] != state:
+        hit = (state, fold())
+        cache[tag] = hit
+    return hit[1]
 
 
 def check_cuda(err, name):
