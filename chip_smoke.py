@@ -1,17 +1,21 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port on one NVIDIA H100 (sm_90).
 
-Drives the port's two paths through the entry points a user calls
-(``FusedRecognitionEngine.process_adaptive`` + ``identify``) and checks
-each hand-written kernel against its plain PyTorch version on the card:
+Drives the port's three lines through the entry points a user calls
+(``FusedRecognitionEngine.process_adaptive`` + ``identify``) and the
+MTCNN host API, and checks each hand-written kernel against its plain
+PyTorch version on the card:
 
 * the default bench line: MTCNN(min_face_size=50) -> window cut +
   Umeyama + warp -> InceptionResnetV1 (full depth, bf16) -> MLP(512,
-  1001) over 64-frame 640x640 chunks (kernels K2, K1);
+  1001) over 64-frame 640x640 chunks (kernels K2, K3, K4, K5, K1);
+* the stock line (``bench.py --detector=mtcnn_stock``): the same with
+  MTCNN at min_face_size=20, auto caps and out_cap 8 over 128-frame
+  chunks, an 11-level pyramid (the same kernels);
 * the production line (``bench.py --production``): RetinaFace cfg_mnet
   (bf16, the vendored fitted weights) -> warp -> iresnet100 (bf16) ->
   MLP(512, 1020), plus the 2-branch ResNet-50 emotion head (690 tags,
-  top 6) over 128-frame 640x640 chunks (kernels K6, K1, K7, K8).
+  top 6) over 128-frame 640x640 chunks (kernels K6, K3, K1, K7, K8).
 
 Phases, one line of output each (a failed phase exits non-zero):
 
@@ -20,23 +24,35 @@ Phases, one line of output each (a failed phase exits non-zero):
    3. K2 (pnet_chain) vs the per-level PNet forward, bench shapes, f32;
    4. K1 (similarity_warp) vs the plain bilinear warp, 512 faces, and
       F.grid_sample as the library yardstick;
-   5. the default slice: chunks with launch counters reset just before
-      and read just after;
-   6. its profile: device busy time of one chunk under torch.profiler;
-   7. its card vs CPU: the same engine in f32 on a 2-frame chunk;
-   8. K6 (mnet_stage1) vs the stage's cuDNN modules, 128x640x640;
-   9. K7 (emotion_stem) vs resize + normalise + cuDNN stem, 512 faces;
-  10. K8 (bottleneck_chain) vs the blocks' cuDNN modules, layer1 and
-      layer2 tails at 512 faces;
-  11. the production slice, counters reset just before, read just after;
+   5. K3 (nms_keep_mask) keep masks equal to the plain fixpoint at six
+      shapes (stock per-scale, cross-scale, ONet stage, RetinaFace, one
+      set of 4,096, all-equal scores);
+   6. K4 (crop_area_resize) bit-exact to the plain integral-image crops
+      on the stock chunk at S = 24 and 48;
+   7. K5 (crop_net_trunk) vs the nets' cuDNN modules at the stock line's
+      crop counts;
+   8. the default slice: chunks with launch counters reset just before
+      and read just after, held to exact per-run counts;
+   9. its profile: device busy time of one chunk under torch.profiler;
+  10. its card vs CPU: the same engine in f32 on a 2-frame chunk;
+  11. the stock slice, counters held the same way;
   12. its profile;
-  13. its card vs CPU in f32 on 2 frames.
+  13. its card vs CPU in f32 on 2 frames;
+  14. the MTCNN host API (detect, __call__) on the card vs the CPU;
+  15. K6 (mnet_stage1) vs the stage's cuDNN modules, 128x640x640;
+  16. K7 (emotion_stem) vs resize + normalise + cuDNN stem, 512 faces;
+  17. K8 (bottleneck_chain) vs the blocks' cuDNN modules, layer1 and
+      layer2 tails at 512 faces;
+  18. the production slice, counters held the same way;
+  19. its profile;
+  20. its card vs CPU in f32 on 2 frames.
 
-Kernel phases check bf16 at the production shapes and f32 on a slice of
-them. Then one JSON line with every kernel's numbers, the card line, and
-the last line {"ok": true, "device": {...}}. Weights are random from a
-seed, except the published MTCNN weights and the fitted RetinaFace
-weights vendored in the repo.
+Kernel phases check bf16 at the lines' shapes and f32 on a slice of
+them; exact kernels (K3, K4) are held with torch.equal. Then one JSON
+line with every kernel's numbers, the card line, and the last line
+{"ok": true, "device": {...}}. Weights are random from a seed, except
+the published MTCNN weights and the fitted RetinaFace weights vendored
+in the repo.
 
 Usage, from the root of a checkout: python3 chip_smoke.py
 """
@@ -47,6 +63,8 @@ import os
 import subprocess
 import sys
 import time
+
+import numpy as np
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 PKG = "vn_celeb_face_recognition_tpu_torch"
@@ -62,7 +80,19 @@ KERNEL_SOURCES = {
                      f"{JAX_OPS}/emotion_stem_pallas.py:171"),
     "bottleneck_chain": (f"{PKG}/csrc/bottleneck_chain.cu",
                          f"{JAX_OPS}/bottleneck_pallas.py:218"),
+    "nms_keep_mask": (f"{PKG}/csrc/nms_keep.cu",
+                      f"{JAX_OPS}/nms_pallas.py:93"),
+    "crop_area_resize": (f"{PKG}/csrc/crop_area_pool.cu",
+                         f"{JAX_OPS}/crop_pallas.py:85"),
+    "crop_net_trunk": (f"{PKG}/csrc/crop_net_trunk.cu",
+                       f"{JAX_OPS}/crops_net_pallas.py:239"),
 }
+# launches per chunk run of an MTCNN line: K2 once, four NMS (K3), one
+# integral image (two grids) and two pools (K4), the RNet and ONet trunks
+# (K5), and one warp (K1)
+MTCNN_LINE_LAUNCHES = {"pnet_chain": 1, "nms_keep_mask": 4,
+                       "crop_area_resize": 4, "crop_net_trunk": 2,
+                       "similarity_warp": 1}
 # default bench line
 DETECTOR = dict(min_face_size=50, pnet_cap_per_scale=128,
                 cross_cap=256, rnet_cap=64, onet_cap=32, out_cap=8)
@@ -78,6 +108,12 @@ PROD_CLASSES, EMOTION_TAGS, EMOTION_TOPK = 1020, 690, 6
 RETINAFACE = dict(conf_thres=0.02, nms_cap=1024, nms_thres=0.4,
                   vis_thres=0.6)
 PROD_CHUNKS = 6
+# stock line (bench.py --detector=mtcnn_stock): MTCNN at min_face_size=20
+# with the auto caps (448/512/256/128 at 640x640), out_cap 8
+STOCK_BATCH = 128
+STOCK_FACES = STOCK_BATCH * FACES_PER_FRAME
+STOCK_BUCKETS = [STOCK_FACES, STOCK_FACES + STOCK_BATCH]
+STOCK_CHUNKS = 4
 # NVIDIA H100 SXM data-sheet peaks (dense), at the 700 W limit
 PEAK_BF16, PEAK_F32, PEAK_BYTES = 989e12, 67e12, 3.35e12
 # a bf16 kernel is held to its plain version computed in f32 on the same
@@ -172,6 +208,103 @@ def bound(nbytes, flops, peak_flops):
                                        else "operations")
 
 
+def check_line_counts(counts, per_run, runs, line, results):
+    """The launch counts of ``runs`` chunk runs of a line must be exactly
+    ``per_run`` x runs (every other kernel 0); each kernel's launches add
+    to its row."""
+    want = {k: per_run.get(k, 0) * runs for k in counts}
+    if counts != want:
+        fail(f"{line} launches {counts}, want {want} for {runs} chunk runs")
+    for k, n in counts.items():
+        if n:
+            results[k]["launches"] = results[k].get("launches", 0) + n
+
+
+def mtcnn_card_vs_cpu(torch, engine_cls, mtcnn_cls, det_kw, models,
+                      models_cpu, two, buckets, dev, what):
+    """The same MTCNN engine in f32 on the card and on the CPU, 2 frames:
+    equal valid masks, boxes within 1e-2 px, embedding cosine >= 0.999."""
+    outs = []
+    for where, (e, c) in ((dev, models), ("cpu", models_cpu)):
+        e.dtype = torch.float32
+        eng = engine_cls(mtcnn_cls(dtype=torch.float32, device=where,
+                                   **det_kw), e, c, target_fs=112,
+                         compute_dtype=torch.float32, face_cap=buckets)
+        outs.append({key: v.cpu() for key, v in
+                     eng.process_adaptive(two).items()
+                     if isinstance(v, torch.Tensor)})
+    gpu, cpu = outs
+    if not torch.equal(gpu["valid"], cpu["valid"]):
+        fail(f"{what}: valid masks differ")
+    v = cpu["valid"]
+    box_err = float((gpu["boxes"][v] - cpu["boxes"][v]).abs().max())
+    cos = torch.nn.functional.cosine_similarity(
+        gpu["embeddings"][v], cpu["embeddings"][v], dim=-1)
+    phase(what, f"{two.shape[0]}x{two.shape[1]}x{two.shape[2]} f32: "
+          f"{int(v.sum())} valid on both; max box diff {box_err:.2e} (atol "
+          f"1e-2); min embedding cosine {float(cos.min()):.6f} (>= 0.999)")
+    if int(v.sum()) == 0 or box_err > 1e-2 or float(cos.min()) < 0.999:
+        fail(f"{what} outside tolerance")
+
+
+def host_frames(frames_np, n):
+    """``n`` stock frames with the top-left face replaced by a larger one,
+    so each frame's largest face is unique."""
+    from vn_celeb_face_recognition_tpu_torch.utils.frames import (
+        face_files,
+        read_png,
+        resize_bicubic,
+    )
+
+    out = frames_np[:n].copy()
+    files = face_files()
+    for i in range(n):
+        face = resize_bicubic(read_png(files[(5 + i) % len(files)]),
+                              (200, 200))
+        out[i, 40:240, 40:240] = face
+    return out
+
+
+def host_api_card_vs_cpu(torch, mtcnn_cls, frames_np, dev):
+    """detect(landmarks=True) and __call__ (largest face, extract) of the
+    MTCNN host API on the card and on the CPU, in f32 on 3 frames: the
+    same face counts, boxes within 1e-2 px, and equal extracted faces
+    wherever the integer crop boxes agree."""
+    imgs = list(host_frames(frames_np, 3))
+    dets = [mtcnn_cls(min_face_size=20, out_cap=8, device=where)
+            for where in (dev, "cpu")]
+    found = [d.detect(imgs, landmarks=True) for d in dets]
+    box_err = 0.0
+    for gb, cb in zip(found[0][0], found[1][0]):
+        if len(gb) != len(cb) or len(gb) == 0:
+            fail(f"host API: {len(gb)} faces on the card, {len(cb)} on the "
+                 "CPU")
+        # order by area may swap near-equal faces: match each card box to
+        # the nearest CPU box
+        d = np.abs(np.asarray(gb, np.float64)[:, None]
+                   - np.asarray(cb, np.float64)[None]).max(-1)
+        box_err = max(box_err, float(d.min(1).max()))
+    called = [d(imgs, return_prob=True) for d in dets]
+    equal = 0
+    for gf, cf, gb, cb in zip(called[0][0], called[1][0], called[0][1],
+                              called[1][1]):
+        box_err = max(box_err, float(np.abs(gb.astype(np.float64)
+                                            - cb.astype(np.float64)).max()))
+        if np.array_equal(np.trunc(gb.astype(np.float64)),
+                          np.trunc(cb.astype(np.float64))):
+            if not np.array_equal(gf, cf):
+                fail("host API: extracted faces differ for equal crop boxes")
+            equal += 1
+    counts = [len(b) for b in found[0][0]]
+    phase("host-api", f"detect(landmarks=True) on {len(imgs)} frames f32: "
+          f"faces per frame {counts} on card and CPU; __call__ (largest "
+          f"face, extract 160 px): {equal} of {len(imgs)} faces extracted "
+          f"equal (the rest differ in an integer crop bound); max box diff "
+          f"{box_err:.2e} (atol 1e-2)")
+    if box_err > 1e-2 or equal == 0:
+        fail("host API card vs CPU outside tolerance")
+
+
 def drive(torch, kernels, engine, chunks, n, names):
     """``n`` timed chunks of process_adaptive + identify, counters reset
     just before; returns (chunk seconds, valid counts, launch counts,
@@ -227,6 +360,200 @@ def profile_chunk(torch, engine, frames, names, chunk_ms, card, what):
     return busy_ms
 
 
+def nms_sets(torch, gen, n, k, size, dev):
+    """``n`` padded sets of ``k`` boxes, clustered around a few faces per
+    set as the cascade's candidates are, with quantised scores (ties) and
+    about 20% invalid rows."""
+    centres = gen.uniform(40, size - 40, (n, 8, 2))
+    pick = gen.integers(0, 8, (n, k))
+    c = np.take_along_axis(centres, pick[..., None], axis=1)
+    side = gen.uniform(20, 150, (n, k, 1))
+    c = c + gen.normal(0, 0.15, (n, k, 2)) * side
+    wh = side * gen.uniform(0.8, 1.25, (n, k, 2))
+    boxes = np.concatenate([c - wh / 2, c + wh / 2], -1).astype(np.float32)
+    scores = (np.round(gen.uniform(0, 1, (n, k)) * 64) / 64).astype(
+        np.float32)
+    valid = gen.uniform(size=(n, k)) < 0.8
+    return (torch.from_numpy(boxes).to(dev), torch.from_numpy(scores).to(dev),
+            torch.from_numpy(valid).to(dev))
+
+
+def nms_iou_tests(torch, boxes, scores, valid, keep, thr, offset, min_mode):
+    """IoU tests a greedy scan needs on these sets: each valid box is
+    tested against the kept boxes ahead of it, up to the first one that
+    suppresses it."""
+    from vn_celeb_face_recognition_tpu_torch.ops.boxes import pairwise_iou
+
+    k = scores.shape[1]
+    s = torch.where(valid, scores, torch.tensor(float("-inf"), device=
+                                                 scores.device))
+    idx = torch.arange(k, device=scores.device)
+    ahead = (s[:, :, None] > s[:, None, :]) | (
+        (s[:, :, None] == s[:, None, :]) & (idx[:, None] < idx[None, :]))
+    ahead &= keep[:, :, None] & valid[:, None, :]            # [N, j, i]
+    rank = ahead.sum(1)  # boxes kept ahead of i; a kept j's rank is its own
+    sup = ahead & (pairwise_iou(boxes, boxes, offset, min_mode) > thr)
+    big = torch.full_like(rank, k + 1)
+    first = torch.where(sup, rank[:, :, None], big[:, :, None]).amin(1)
+    return int((ahead & (rank[:, :, None] <= first[:, None, :])).sum())
+
+
+def phase_k3(torch, kernels, K3, dev, card, results):
+    """K3 keep masks equal to the plain version at the cascade's, the ONet
+    stage's and RetinaFace's shapes, one set of 4,096 and all-equal
+    scores; timed at the stock per-scale shape."""
+    gen = np.random.default_rng(10)
+    cases = [("stock per-scale", 1408, 448, 0.5, 0.0, False),
+             ("cross-scale", 128, 512, 0.7, 0.0, False),
+             ("ONet stage", 128, 128, 0.7, 1.0, True),
+             ("RetinaFace", 128, 1024, 0.4, 1.0, False),
+             ("one set", 1, 4096, 0.5, 0.0, False),
+             ("all-equal scores", 64, 448, 0.5, 0.0, False)]
+    parts, timed = [], None
+    for what, n, k, thr, off, mm in cases:
+        boxes, scores, valid = nms_sets(torch, gen, n, k, SIZE, dev)
+        if what == "all-equal scores":
+            scores = torch.full_like(scores, 0.5)
+        got = through_kernel(kernels, "nms_keep_mask",
+                             lambda: K3.nms_keep_mask(boxes, scores, valid,
+                                                      thr, off, mm))
+        want = K3.nms_keep_mask_plain(boxes, scores, valid, thr, off, mm)
+        if not torch.equal(got, want):
+            fail(f"K3 {what} {n}x{k}: {int((got != want).sum())} keep flags "
+                 "differ from the plain version")
+        parts.append(f"{what} {n}x{k} @{thr} off {off:g} min {mm}: "
+                     f"{int(got.sum())} kept of {int(valid.sum())}")
+        if timed is None:
+            timed = (boxes, scores, valid, got, thr)
+    boxes, scores, valid, keep, thr = timed
+    ms = median_ms(torch, lambda: K3.nms_keep_mask(boxes, scores, valid, thr))
+    plain_ms = median_ms(torch, lambda: K3.nms_keep_mask_plain(
+        boxes, scores, valid, thr), runs=5)
+    tests = nms_iou_tests(torch, boxes, scores, valid, keep, thr, 0.0, False)
+    # 22 bytes a box (boxes, score, valid in; keep out); ~15 f32 operations
+    # an IoU test
+    bound_ms, bound_by = bound(scores.numel() * 22, tests * 15, PEAK_F32)
+    results["nms_keep_mask"] = dict(max_abs_err=0.0, ms=ms,
+                                    plain_ms=plain_ms, bound_ms=bound_ms,
+                                    bound_by=bound_by, library_ms=None)
+    phase("K3", "nms_keep_mask keep masks equal (torch.equal): "
+          + "; ".join(parts) + f". Timed at 1408x448: kernel {ms:.3f} ms, "
+          f"plain {plain_ms:.3f} ms, bound {bound_ms:.4f} ms ({bound_by}; "
+          f"{tests} IoU tests); library none (no single PyTorch call "
+          f"computes a batched greedy keep mask) (median of 20 / 5, CUDA "
+          f"events; {card})")
+
+
+def phase_k4(torch, kernels, K4, frames, card, results):
+    """K4 bit-exact (torch.equal) to the plain version on the stock chunk:
+    K = 256 at S = 24 and K = 128 at S = 48, with full-frame, partly
+    off-frame and inverted boxes; timed as the cascade runs it (one
+    integral image, two pools)."""
+    gen = np.random.default_rng(11)
+    b, h, w = frames.shape[:3]
+    dev = frames.device
+
+    def box_set(k):
+        xy = gen.uniform(-60, w + 20, (b, k, 2))
+        side = gen.uniform(4, 300, (b, k, 1))
+        bx = np.trunc(np.concatenate([xy, xy + side], -1))
+        bx[:, 0] = [1, 1, w, h]                      # full frame
+        bx[:, 1] = [-40, h - 50, 60, h + 70]         # partly off-frame
+        bx[:, 2] = [300, 300, 200, 250]              # inverted
+        bx[:, 3] = [w + 5, 10, w + 90, 80]           # right of the frame
+        return torch.from_numpy(bx.astype(np.float32)).to(dev)
+
+    stages = [(24, box_set(256)), (48, box_set(128))]
+    integ = through_kernel(kernels, "crop_area_resize",
+                           lambda: K4.integral_image(frames), launches=2)
+    integ_plain = K4.integral_image_plain(frames)
+    if not torch.equal(integ, integ_plain):
+        fail("K4 integral image differs from the plain version")
+    nbytes = frames.numel()
+    for s, bx in stages:
+        got = through_kernel(kernels, "crop_area_resize",
+                             lambda: K4.crop_area_pool(integ, bx, s))
+        want = K4.grouped_crop_area_resize_plain(frames, bx, s)
+        if not torch.equal(got, want):
+            err = float((got - want).abs().max())
+            fail(f"K4 S={s}: not bit-exact, max abs err {err:.3e}")
+        nbytes += got.numel() * 4 + bx.numel() * 4
+    del integ_plain
+
+    def cascade_crops():  # one integral image, both pools
+        shared = K4.integral_image(frames)
+        return [K4.crop_area_pool(shared, bx, s) for s, bx in stages]
+
+    ms = median_ms(torch, cascade_crops)
+    ms_integ = median_ms(torch, lambda: K4.integral_image(frames))
+    plain_ms = median_ms(torch, lambda: [K4.grouped_crop_area_resize_plain(
+        frames, bx, s) for s, bx in stages], runs=5)
+    bound_ms, bound_by = bound(nbytes, 0, PEAK_F32)
+    results["crop_area_resize"] = dict(max_abs_err=0.0, ms=ms,
+                                       plain_ms=plain_ms, bound_ms=bound_ms,
+                                       bound_by=bound_by, library_ms=None)
+    phase("K4", f"crop_area_resize {b}x{h}x{w} u8, K=256 S=24 and K=128 "
+          "S=48 (full-frame, off-frame, inverted boxes): bit-exact "
+          f"(torch.equal); integral image + both pools {ms:.3f} ms (the "
+          f"integral image {ms_integ:.3f} ms), plain (integral image per "
+          f"stage) {plain_ms:.3f} ms, bound {bound_ms:.3f} ms ({bound_by}: "
+          "frames in, crops out); library none (no PyTorch call pools many "
+          f"boxes per frame) (median of 20 / 5, CUDA events; {card})")
+
+
+def trunk_flops(spec):
+    """Multiply-adds x2 of one crop's conv1 and conv2."""
+    c1 = spec.conv1_out
+    return 2 * (c1 * c1 * spec.c1 * 27
+                + spec.out * spec.out * spec.c2 * 9 * spec.c1)
+
+
+def phase_k5(torch, kernels, K5, det, card, results):
+    """K5 on the stock line's crop counts in bf16 (held to the plain version
+    in f32) and f32 on a slice (1e-4)."""
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    ms = plain_ms = err = 0.0
+    nbytes = flops = 0
+    parts = []
+    for net, spec, n in ((det.rnet, K5.RNET_SPEC, STOCK_BATCH * 256),
+                         (det.onet, K5.ONET_SPEC, STOCK_BATCH * 128)):
+        raw = torch.randint(0, 256, (n, spec.size, spec.size, 3),
+                            generator=gen, device="cuda")
+        x32 = (raw.to(torch.float32) - 127.5) * 0.0078125
+        x = x32.to(torch.bfloat16)
+        got = through_kernel(kernels, "crop_net_trunk",
+                             lambda: K5.crop_net_trunk(net, x, spec))
+        want = K5.crop_net_trunk_plain(net, x.to(torch.float32), spec)
+        e, rel_l2, rel_max, plain16 = check_bf16(
+            torch, got, want, K5.crop_net_trunk_plain(net, x, spec),
+            f"K5 {spec.name} bf16")
+        few = x32[:1024]
+        want32 = K5.crop_net_trunk_plain(net, few, spec)
+        e32 = check_close(torch, K5.crop_net_trunk(net, few, spec), want32,
+                          1e-4, 1e-4 * float(want32.abs().max()),
+                          f"K5 {spec.name} f32")
+        t_k = median_ms(torch, lambda: K5.crop_net_trunk(net, x, spec))
+        t_p = median_ms(torch, lambda: K5.crop_net_trunk_plain(net, x, spec))
+        ms, plain_ms, err = ms + t_k, plain_ms + t_p, max(err, e)
+        nbytes += (x.numel() + got.numel()) * 2
+        flops += n * trunk_flops(spec)
+        parts.append(f"{spec.name} {n} crops vs plain f32: max abs err "
+                     f"{e:.3e}, rel L2 {rel_l2:.2e}, max/max|ref| "
+                     f"{rel_max:.2e} (plain bf16 rel L2 {plain16:.2e}), f32 "
+                     f"kernel on 1024 crops {e32:.3e}; kernel {t_k:.3f} ms, "
+                     f"plain {t_p:.3f} ms")
+        del raw, x32, x, got, want, few, want32
+    bound_ms, bound_by = bound(nbytes, flops, PEAK_BF16)
+    results["crop_net_trunk"] = dict(max_abs_err=err, ms=ms,
+                                     plain_ms=plain_ms, bound_ms=bound_ms,
+                                     bound_by=bound_by, library_ms=None)
+    phase("K5", "crop_net_trunk bf16: " + "; ".join(parts) + f"; both "
+          f"{ms:.3f} ms, plain {plain_ms:.3f} ms, bound {bound_ms:.3f} ms "
+          f"({bound_by}, {flops / 1e9:.1f} GFLOP at the bf16 peak); library "
+          "none (no single PyTorch call computes conv + PReLU + pool + conv "
+          f"+ PReLU) (median of 20, CUDA events; {card})")
+
+
 def mnet_stage1_flops(h, w):
     """Multiply-adds x2 of MobileNetV1-0.25 stage 1 on one h x w frame."""
     from vn_celeb_face_recognition_tpu_torch.ops.planar_s1 import (
@@ -265,7 +592,6 @@ def main():
              "it from a checkout")
 
     # ---- 1. card -------------------------------------------------------
-    import numpy as np
     import torch
 
     if not torch.cuda.is_available():
@@ -299,7 +625,10 @@ def main():
         WEIGHTS_NPZ,
     )
     from vn_celeb_face_recognition_tpu_torch.ops import bottleneck as K8
+    from vn_celeb_face_recognition_tpu_torch.ops import crop as K4
+    from vn_celeb_face_recognition_tpu_torch.ops import crops_net as K5
     from vn_celeb_face_recognition_tpu_torch.ops import emotion_stem as K7
+    from vn_celeb_face_recognition_tpu_torch.ops import nms as K3
     from vn_celeb_face_recognition_tpu_torch.ops import planar_s1 as K6
     from vn_celeb_face_recognition_tpu_torch.ops import pyramid_pnet as K2
     from vn_celeb_face_recognition_tpu_torch.ops import warp as K1
@@ -412,7 +741,14 @@ def main():
           f"(median of 20, CUDA events; {card})")
     del windows, got, want, grid, win_nchw
 
-    # ---- 5. the default slice ------------------------------------------
+    # ---- 5-7. K3, K4, K5 vs plain at the stock line's shapes ------------
+    stock_np = build_frames(STOCK_BATCH, SIZE, FACES_PER_FRAME)
+    stock = torch.from_numpy(stock_np).to(dev)
+    phase_k3(torch, kernels, K3, dev, card, results)
+    phase_k4(torch, kernels, K4, stock, card, results)
+    phase_k5(torch, kernels, K5, det, card, results)
+
+    # ---- 8. the default slice ------------------------------------------
     g = torch.Generator().manual_seed(0)
     enc = seeded_init_(InceptionResnetV1(dtype=torch.bfloat16), g)
     clf = seeded_init_(MLPModel(512, N_CLASSES), g)
@@ -427,11 +763,8 @@ def main():
         engine.identify(engine.process_adaptive(c), names, 0.5)
     times, valid_counts, counts, runs, out, _ = drive(
         torch, kernels, engine, chunks, CHUNKS, names)
-    for kname in ("pnet_chain", "similarity_warp"):
-        if counts[kname] != runs:
-            fail(f"kernel {kname}: {counts[kname]} launches in {runs} "
-                 "chunk runs of the default line")
-        results[kname]["launches"] = counts[kname]
+    check_line_counts(counts, MTCNN_LINE_LAUNCHES, runs, "default",
+                      results)
     chunk_ms = sorted(times)[len(times) // 2] * 1e3
     faces = sum(valid_counts) / len(valid_counts)
     phase("slice", f"{len(times)} chunks of {BATCH}x{SIZE}x{SIZE}, bf16; "
@@ -442,34 +775,58 @@ def main():
     if min(valid_counts) < 0.9 * BATCH * FACES_PER_FRAME:
         fail(f"too few faces detected: {valid_counts}")
 
-    # ---- 6. profile ---------------------------------------------------
+    # ---- 9. profile ---------------------------------------------------
     profile_chunk(torch, engine, chunks[0], names, chunk_ms, card, "profile")
 
-    # ---- 7. card vs CPU ------------------------------------------------
-    two = frames_np[:2]
-    outs = []
-    for where, e, c in ((dev, enc, clf), ("cpu", enc_cpu, clf_cpu)):
-        e.dtype = torch.float32
-        eng = FusedRecognitionEngine(
-            MTCNN(dtype=torch.float32, device=where, **DETECTOR), e, c,
-            target_fs=112, compute_dtype=torch.float32,
-            face_cap=FACE_BUCKETS)
-        outs.append({key: v.cpu() for key, v in
-                     eng.process_adaptive(two).items()
-                     if isinstance(v, torch.Tensor)})
-    gpu, cpu = outs
-    if not torch.equal(gpu["valid"], cpu["valid"]):
-        fail("card vs CPU: valid masks differ")
-    v = cpu["valid"]
-    box_err = float((gpu["boxes"][v] - cpu["boxes"][v]).abs().max())
-    cos = torch.nn.functional.cosine_similarity(
-        gpu["embeddings"][v], cpu["embeddings"][v], dim=-1)
-    phase("card-vs-cpu", f"2x{SIZE}x{SIZE} f32: {int(v.sum())} valid on "
-          f"both; max box diff {box_err:.2e} (atol 1e-2); min embedding "
-          f"cosine {float(cos.min()):.6f} (>= 0.999)")
-    if int(v.sum()) == 0 or box_err > 1e-2 or float(cos.min()) < 0.999:
-        fail("card vs CPU outside tolerance")
-    del engine, eng, det, enc, clf, enc_cpu, clf_cpu, chunks, frames
+    # ---- 10. card vs CPU -----------------------------------------------
+    mtcnn_card_vs_cpu(torch, FusedRecognitionEngine, MTCNN, DETECTOR,
+                      (enc, clf), (enc_cpu, clf_cpu), frames_np[:2],
+                      FACE_BUCKETS, dev, "card-vs-cpu")
+    del engine, det, enc, clf, enc_cpu, clf_cpu, chunks, frames
+    torch.cuda.empty_cache()
+
+    # ---- 11. the stock slice (bench.py --detector=mtcnn_stock) ---------
+    sdet = MTCNN(min_face_size=20, out_cap=8, dtype=torch.bfloat16,
+                 device=dev)
+    g = torch.Generator().manual_seed(4)
+    enc = seeded_init_(InceptionResnetV1(dtype=torch.bfloat16), g)
+    clf = seeded_init_(MLPModel(512, N_CLASSES), g)
+    enc_cpu, clf_cpu = copy.deepcopy(enc), copy.deepcopy(clf)
+    engine = FusedRecognitionEngine(
+        sdet, enc, clf, target_fs=112, compute_dtype=torch.bfloat16,
+        face_cap=STOCK_BUCKETS, face_hint=STOCK_FACES)
+    chunks = [stock, torch.from_numpy(np.roll(stock_np, 97, axis=2)).to(dev)]
+    for c in chunks:  # warm-up
+        engine.identify(engine.process_adaptive(c), names, 0.5)
+    times, valid_counts, counts, runs, out, _ = drive(
+        torch, kernels, engine, chunks, STOCK_CHUNKS, names)
+    check_line_counts(counts, MTCNN_LINE_LAUNCHES, runs, "stock", results)
+    chunk_ms = sorted(times)[len(times) // 2] * 1e3
+    faces = sum(valid_counts) / len(valid_counts)
+    phase("stock", f"{len(times)} chunks of {STOCK_BATCH}x{SIZE}x{SIZE}, "
+          f"MTCNN min_face_size=20 caps {sdet.capacity_profile(SIZE, SIZE)}"
+          f", bf16; valid faces per chunk {valid_counts}; {runs} chunk runs;"
+          f" median chunk {chunk_ms:.2f} ms (host clock incl. identify), "
+          f"{faces / chunk_ms * 1e3:.1f} faces/s on {card}; launches "
+          f"{counts}; bucket {out['_face_cap_used']}")
+    if min(valid_counts) < 0.9 * STOCK_FACES:
+        fail(f"too few faces detected: {valid_counts}")
+
+    # ---- 12. its profile -----------------------------------------------
+    profile_chunk(torch, engine, chunks[0], names, chunk_ms, card,
+                  "stock-profile")
+    del engine, chunks, out
+
+    # ---- 13. stock card vs CPU -----------------------------------------
+    mtcnn_card_vs_cpu(torch, FusedRecognitionEngine, MTCNN,
+                      dict(min_face_size=20, out_cap=8), (enc, clf),
+                      (enc_cpu, clf_cpu), stock_np[:2], STOCK_BUCKETS, dev,
+                      "stock-card-vs-cpu")
+    del enc, clf, enc_cpu, clf_cpu, sdet
+
+    # ---- 14. the MTCNN host API, card vs CPU ---------------------------
+    host_api_card_vs_cpu(torch, MTCNN, stock_np, dev)
+    del stock
     torch.cuda.empty_cache()
 
     # ---- production models ---------------------------------------------
@@ -489,7 +846,7 @@ def main():
     for m in (penc, pclf, emo):
         m.to(dev).eval()
 
-    # ---- 8. K6 vs plain ------------------------------------------------
+    # ---- 15. K6 vs plain ------------------------------------------------
     stage1 = rdet.net.body.stage1
     sub = CHANNELS_SUBTRACT
     # one launch per stride-2 segment
@@ -524,7 +881,7 @@ def main():
           f"peak) (median of 20, CUDA events; {card})")
     del got, want
 
-    # ---- 9. K7 vs plain ------------------------------------------------
+    # ---- 16. K7 vs plain ------------------------------------------------
     faces = torch.from_numpy(np.random.default_rng(2).uniform(
         0, 255, (PROD_FACES, 112, 112, 3)).astype(np.float32)).to(dev)
     conv1, bn1 = emo.conv1, emo.bn1
@@ -560,7 +917,7 @@ def main():
           f"CUDA events; {card})")
     del faces, got, want
 
-    # ---- 10. K8 vs plain -----------------------------------------------
+    # ---- 17. K8 vs plain -----------------------------------------------
     gen = torch.Generator(device=dev).manual_seed(3)
     ms = plain_ms = bound_ms = err = 0.0
     parts, bound_by = [], {}
@@ -606,7 +963,7 @@ def main():
           + f"; both chains {ms:.3f} ms, plain {plain_ms:.3f} ms, bound "
           f"{bound_ms:.3f} ms (median of 20, CUDA events; {card})")
 
-    # ---- 11. the production slice --------------------------------------
+    # ---- 18. the production slice --------------------------------------
     engine = FusedRecognitionEngine(
         rdet, penc, pclf, target_fs=112, compute_dtype=torch.bfloat16,
         face_cap=PROD_BUCKETS, face_hint=PROD_FACES, emotion=emo,
@@ -617,18 +974,13 @@ def main():
         engine.identify(engine.process_adaptive(c), names, 0.5)
     times, valid_counts, counts, runs, out, res = drive(
         torch, kernels, engine, chunks, PROD_CHUNKS, names)
-    # per chunk run: K6's three segments, one K1 and one K7 launch, and
-    # one K8 launch per block of layer1's and layer2's tails
+    # per chunk run: K6's three segments, one NMS (K3), one K1 and one K7
+    # launch, and one K8 launch per block of layer1's and layer2's tails
     tail_blocks = len(emo.layer1) - 1 + len(emo.layer2) - 1
-    want_counts = {"mnet_stage1": 3 * runs, "similarity_warp": runs,
-                   "emotion_stem": runs,
-                   "bottleneck_chain": tail_blocks * runs, "pnet_chain": 0}
-    if counts != want_counts:
-        fail(f"production launches {counts}, want {want_counts} for {runs} "
-             "chunk runs")
-    for kname in ("mnet_stage1", "emotion_stem", "bottleneck_chain"):
-        results[kname]["launches"] = counts[kname]
-    results["similarity_warp"]["launches"] += counts["similarity_warp"]
+    check_line_counts(counts, {"mnet_stage1": 3, "nms_keep_mask": 1,
+                               "similarity_warp": 1, "emotion_stem": 1,
+                               "bottleneck_chain": tail_blocks}, runs,
+                      "production", results)
     if any(len(r) != 4 for r in res):
         fail("identify did not return (names, boxes, emotion_idx, "
              "emotion_prob) per frame")
@@ -646,12 +998,12 @@ def main():
     if min(valid_counts) < 0.9 * PROD_FACES:
         fail(f"too few faces detected: {valid_counts}")
 
-    # ---- 12. profile ---------------------------------------------------
+    # ---- 19. profile ---------------------------------------------------
     profile_chunk(torch, engine, chunks[0], names, chunk_ms, card,
                   "production-profile")
     del engine, chunks, out, res
 
-    # ---- 13. production card vs CPU ------------------------------------
+    # ---- 20. production card vs CPU ------------------------------------
     two = prod_np[:2]
     outs = []
     for where, e, c, m in ((dev, penc, pclf, emo),

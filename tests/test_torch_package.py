@@ -37,7 +37,8 @@ def test_port_imports_without_jax_or_flax():
     assert f"{PKG}.pipeline.engine" in mods and len(mods) >= 15
     for mod in ("models.retinaface", "models.iresnet",
                 "models.resnet_2_branch", "ops.planar_s1",
-                "ops.emotion_stem", "ops.bottleneck"):
+                "ops.emotion_stem", "ops.bottleneck", "ops.nms", "ops.crop",
+                "ops.crops_net"):
         assert f"{PKG}.{mod}" in mods
     code = (
         "import sys\n"
@@ -99,15 +100,18 @@ def test_kernel_build_bookkeeping(tmp_path, monkeypatch):
     fallback); counters reset."""
     assert {os.path.basename(s) for s in kernels._sources()} >= {
         "pyramid_pnet.cu", "similarity_warp.cu", "mnet_stage1.cu",
-        "emotion_stem.cu", "bottleneck_chain.cu", "launch.cuh"}
+        "emotion_stem.cu", "bottleneck_chain.cu", "nms_keep.cu",
+        "crop_area_pool.cu", "crop_net_trunk.cu", "launch.cuh"}
     digest = kernels.sources_hash()
     assert digest == kernels.sources_hash() and len(digest) == 64
     assert set(kernels.launch_counts()) == {
         "pnet_chain", "similarity_warp", "mnet_stage1", "emotion_stem",
-        "bottleneck_chain"}
+        "bottleneck_chain", "nms_keep_mask", "crop_area_resize",
+        "crop_net_trunk"}
     assert set(kernels.SIGNATURES) == {
         "vn_similarity_warp", "vn_pnet_chain", "vn_mnet_stage1",
-        "vn_emotion_stem", "vn_bottleneck_block"}
+        "vn_emotion_stem", "vn_bottleneck_block", "vn_nms_keep_mask",
+        "vn_integral_image", "vn_crop_area_pool", "vn_crop_net_trunk"}
     kernels.count_launch("pnet_chain")
     assert kernels.launch_counts()["pnet_chain"] >= 1
     before = kernels.launch_counts()["mnet_stage1"]
@@ -148,12 +152,16 @@ def test_kernel_wrappers_never_fall_back():
 
 
 def test_new_kernel_wrappers_never_fall_back():
-    """K6, K7 and K8: the kernel entry points refuse CPU tensors before
-    touching the library, a non-CUDA, non-CPU tensor raises, and CPU
-    tensors take the plain versions without counting a launch."""
+    """K3-K8: the kernel entry points refuse CPU tensors before touching
+    the library, a non-CUDA, non-CPU tensor raises, and CPU tensors take
+    the plain versions without counting a launch."""
+    from vn_celeb_face_recognition_tpu_torch.models.mtcnn import ONet, RNet
     from vn_celeb_face_recognition_tpu_torch.models.resnet_2_branch import (
         ResNet2Branch,
     )
+    from vn_celeb_face_recognition_tpu_torch.ops import crop as K4
+    from vn_celeb_face_recognition_tpu_torch.ops import crops_net as K5
+    from vn_celeb_face_recognition_tpu_torch.ops import nms as K3
     from vn_celeb_face_recognition_tpu_torch.models.retinaface import (
         RetinaFaceNet,
     )
@@ -168,7 +176,22 @@ def test_new_kernel_wrappers_never_fall_back():
     blocks = list(emo.layer1)[1:]
     x = torch.zeros((1, 6, 5, 256))
     sub = (104.0, 117.0, 123.0)
+    boxes = torch.tensor([[[1.0, 1.0, 9.0, 9.0], [2.0, 2.0, 9.0, 9.0]]])
+    scores = torch.tensor([[0.9, 0.8]])
+    valid = torch.ones((1, 2), dtype=torch.bool)
+    integ = K4.integral_image(frames)
     calls = (
+        (K3.nms_keep_mask_kernel, K3.nms_keep_mask,
+         lambda f, t: f(t, scores.to(t.device), valid.to(t.device), 0.5),
+         boxes),
+        (K4.integral_image_kernel, K4.integral_image, lambda f, t: f(t),
+         frames),
+        (K4.crop_area_pool_kernel, K4.crop_area_pool,
+         lambda f, t: f(t, boxes.to(t.device), 24), integ),
+        (K5.crop_net_trunk_kernel, K5.crop_net_trunk,
+         lambda f, t: f(RNet(), t, K5.RNET_SPEC), torch.zeros((2, 24, 24, 3))),
+        (K5.crop_net_trunk_kernel, K5.crop_net_trunk,
+         lambda f, t: f(ONet(), t, K5.ONET_SPEC), torch.zeros((1, 48, 48, 3))),
         (K6.mnet_stage1_kernel, K6.mnet_stage1,
          lambda f, t: f(stage1, t, sub, torch.float32), frames),
         (K7.emotion_stem_kernel, K7.emotion_stem,
@@ -186,6 +209,9 @@ def test_new_kernel_wrappers_never_fall_back():
     assert kernels.launch_counts() == before
     assert K6.mnet_stage1(stage1, frames, sub, torch.float32).shape == (
         1, 3, 5, 64)
+    assert K3.nms_keep_mask(boxes, scores, valid, 0.5).tolist() == [
+        [True, False]]
+    assert K4.crop_area_pool(integ, boxes, 24).shape == (1, 2, 24, 24, 3)
 
 
 def test_detectors_default_to_the_card():

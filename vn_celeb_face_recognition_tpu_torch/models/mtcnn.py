@@ -5,8 +5,17 @@ nets, thresholds, box math and per-stage capacities. Data-dependent box
 counts are fixed capacities with validity masks: top-K per pyramid scale
 after PNet, ``cross_cap`` before the cross-scale NMS, ``rnet_cap`` into
 stage 2, ``onet_cap`` into stage 3 and ``out_cap`` final faces per frame.
-Stage 1 runs every pyramid level through kernel K2
-(``ops.pyramid_pnet``) in one launch on the card.
+On the card every TPU kernel of the cascade has its CUDA counterpart:
+stage 1 runs every pyramid level through K2 (``ops.pyramid_pnet``) in one
+launch, every NMS is K3 (``ops.nms``), the 24 and 48 px crops are K4
+(``ops.crop``: one integral image per chunk, one pool per stage) and the
+RNet/ONet trunks are K5 (``ops.crops_net``).
+
+The host API (``detect``, ``inference``, ``select_boxes``, ``extract``,
+``__call__``, ``extract_face``) takes numpy frames or lists of them, as
+the JAX package's does, and needs no PIL: ``extract_face`` resizes with
+the PIL-exact bilinear filter of ``utils.frames`` and ``extract`` writes
+PNGs with ``utils.frames.write_png``.
 
 Weights: the published torch-keyed ``{p,r,o}net.npz`` vendored in the JAX
 package, read by file path with ``numpy.load`` (the port imports nothing
@@ -21,9 +30,11 @@ import torch
 from torch import nn
 
 from ..ops import boxes as B
-from ..ops.image import grouped_crop_area_resize
+from ..ops.crop import crop_area_pool, integral_image
+from ..ops.crops_net import ONET_SPEC, RNET_SPEC, crop_net_trunk
 from ..ops.pyramid_pnet import normalize, pyramid_pnet
 from ..utils.device import select_device
+from ..utils.frames import resize_bilinear, write_png
 from .layers import conv, linear, load_npz, max_pool_ceil, prelu
 
 _REPO_ROOT = os.path.dirname(os.path.dirname(os.path.dirname(
@@ -83,10 +94,9 @@ class RNet(nn.Module):
         self.dense5_2 = nn.Linear(128, 4)
 
     def forward(self, x):
-        x = prelu(self.prelu1, conv(self.conv1, x))
-        x = max_pool_ceil(x, 3, 2)
-        x = prelu(self.prelu2, conv(self.conv2, x))
-        x = max_pool_ceil(x, 3, 2)
+        # conv1 .. prelu2 through kernel K5 (NHWC in and out)
+        x = crop_net_trunk(self, x.permute(0, 2, 3, 1), RNET_SPEC)
+        x = max_pool_ceil(x.permute(0, 3, 1, 2), 3, 2)
         x = prelu(self.prelu3, conv(self.conv3, x))
         x = prelu(self.prelu4, linear(self.dense4, _flatten_whc(x)))
         a = torch.softmax(linear(self.dense5_1, x), dim=1)
@@ -114,10 +124,9 @@ class ONet(nn.Module):
         self.dense6_3 = nn.Linear(256, 10)
 
     def forward(self, x):
-        x = prelu(self.prelu1, conv(self.conv1, x))
-        x = max_pool_ceil(x, 3, 2)
-        x = prelu(self.prelu2, conv(self.conv2, x))
-        x = max_pool_ceil(x, 3, 2)
+        # conv1 .. prelu2 through kernel K5 (NHWC in and out)
+        x = crop_net_trunk(self, x.permute(0, 2, 3, 1), ONET_SPEC)
+        x = max_pool_ceil(x.permute(0, 3, 1, 2), 3, 2)
         x = prelu(self.prelu3, conv(self.conv3, x))
         x = max_pool_ceil(x, 2, 2)
         x = prelu(self.prelu4, conv(self.conv4, x))
@@ -196,7 +205,9 @@ class MTCNN:
     Constructor arguments mirror the JAX package's ``MTCNN``; ``dtype``
     is the compute dtype of RNet/ONet (stage 1 is always f32) and
     ``device`` where the nets live: the card unless ``"cpu"`` is asked
-    for (a missing card raises).
+    for (a missing card raises). ``image_size``, ``margin``,
+    ``post_process``, ``select_largest``, ``selection_method`` and
+    ``keep_all`` shape the host API's selection and face extraction.
     """
 
     _BASE_CAPS = {
@@ -209,10 +220,19 @@ class MTCNN:
     _SAT_STAGES = ("pnet_cap_per_scale", "cross_cap", "rnet_cap",
                    "onet_cap", "out_cap")
 
-    def __init__(self, min_face_size=20, thresholds=(0.6, 0.7, 0.7),
-                 factor=0.709, pnet_cap_per_scale=None,
-                 cross_cap=None, rnet_cap=None, onet_cap=None, out_cap=64,
-                 dtype=torch.float32, device="cuda"):
+    def __init__(self, image_size=160, margin=0, min_face_size=20,
+                 thresholds=(0.6, 0.7, 0.7), factor=0.709, post_process=True,
+                 select_largest=True, selection_method=None, keep_all=False,
+                 pnet_cap_per_scale=None, cross_cap=None, rnet_cap=None,
+                 onet_cap=None, out_cap=64, dtype=torch.float32,
+                 device="cuda"):
+        self.image_size = image_size
+        self.margin = margin
+        self.post_process = post_process
+        self.select_largest = select_largest
+        self.keep_all = keep_all
+        self.selection_method = selection_method or (
+            "largest" if select_largest else "probability")
         self.min_face_size = min_face_size
         self.thresholds = tuple(thresholds)
         self.factor = factor
@@ -297,6 +317,7 @@ class MTCNN:
         k2, k3, kout = caps["rnet_cap"], caps["onet_cap"], caps["out_cap"]
         thr = self.thresholds
         imgs = frames.to(torch.float32)
+        integ = integral_image(frames)  # K4: shared by both crop stages
         dev = imgs.device
         sat_s1 = torch.zeros((), dtype=torch.int32, device=dev)
 
@@ -335,7 +356,7 @@ class MTCNN:
         boxes = B.rerec(_stage1_bbreg(boxes, reg))
 
         # ---- stage 2: 24x24 crops + RNet ----
-        crops = grouped_crop_area_resize(imgs, B.clamp_boxes(boxes, w, h), 24)
+        crops = crop_area_pool(integ, B.clamp_boxes(boxes, w, h), 24)
         r_reg, r_prob = self._apply(self.rnet, crops.reshape(-1, 24, 24, 3))
         r_score = r_prob[:, 1].reshape(batch, -1)
         r_reg = r_reg.reshape(batch, -1, 4)
@@ -346,7 +367,7 @@ class MTCNN:
         valid, score, boxes = _cap(k3, r_score, valid, boxes)
 
         # ---- stage 3: 48x48 crops + ONet ----
-        crops = grouped_crop_area_resize(imgs, B.clamp_boxes(boxes, w, h), 48)
+        crops = crop_area_pool(integ, B.clamp_boxes(boxes, w, h), 48)
         o_reg, o_landm, o_prob = self._apply(self.onet,
                                              crops.reshape(-1, 48, 48, 3))
         o_score = o_prob[:, 1].reshape(batch, -1)
@@ -374,3 +395,181 @@ class MTCNN:
         """Run R/ONet on NHWC crops in the compute dtype; f32 outputs."""
         x = normalize(crops_nhwc).permute(0, 3, 1, 2).to(self.dtype)
         return tuple(o.to(torch.float32) for o in net(x))
+
+    # -- host API (the JAX package's models/mtcnn.py:766-966) -------------
+
+    @staticmethod
+    def _as_batch(img):
+        """ndarray or list input -> (array [B, H, W, 3] uint8, batch_mode)."""
+        if isinstance(img, (list, tuple)):
+            arrs = [np.asarray(x, dtype=np.uint8) for x in img]
+            if any(a.shape != arrs[0].shape for a in arrs):
+                raise ValueError("MTCNN batch processing only compatible "
+                                 "with equal-dimension images.")
+            return np.stack(arrs), True
+        arr = np.asarray(img, dtype=np.uint8)
+        if arr.ndim == 3:
+            return arr[None], False
+        return arr, True
+
+    def detect(self, img, landmarks=False):
+        """Boxes and probabilities (and 5-point landmarks) of every face,
+        per image, ordered by area when ``select_largest`` else by
+        probability; an image without faces gets empty lists."""
+        imgs, batch_mode = self._as_batch(img)
+        frames = torch.from_numpy(np.ascontiguousarray(imgs)).to(self.device)
+        b_boxes, b_score, b_points, b_valid, sat = (
+            t.cpu().numpy() for t in self.detect_padded(frames))
+        self.warn_capacity_saturation(sat, hw=imgs.shape[1:3])
+        boxes_out, probs_out, points_out = [], [], []
+        for i in range(imgs.shape[0]):
+            v = b_valid[i]
+            if not v.any():
+                boxes_out.append([])
+                probs_out.append([])
+                points_out.append([])
+                continue
+            bx, sc, pt = b_boxes[i][v], b_score[i][v], b_points[i][v]
+            if self.select_largest:
+                order = np.argsort(
+                    (bx[:, 2] - bx[:, 0]) * (bx[:, 3] - bx[:, 1]))[::-1]
+            else:
+                order = np.argsort(sc)[::-1]
+            boxes_out.append(bx[order])
+            probs_out.append(sc[order])
+            points_out.append(pt[order])
+        if batch_mode:  # numpy's object arrays, as the JAX package builds
+            out = tuple(np.array(x, dtype=object)
+                        for x in (boxes_out, probs_out, points_out))
+        else:
+            out = (boxes_out[0], probs_out[0], points_out[0])
+        return out if landmarks else out[:2]
+
+    def inference(self, rgb_image, landmark=True):
+        return self.detect(rgb_image, landmark)
+
+    def select_boxes(self, all_boxes, all_probs, all_points, imgs,
+                     method="probability", threshold=0.9,
+                     center_weight=2.0):
+        """One face per image by ``method``: "largest", "probability",
+        "center_weighted_size" or "largest_over_threshold"."""
+        batch_mode = isinstance(imgs, (list, tuple)) or (
+            isinstance(imgs, np.ndarray) and imgs.ndim == 4)
+        if not batch_mode:
+            imgs, all_boxes = [imgs], [all_boxes]
+            all_probs, all_points = [all_probs], [all_points]
+        sel_boxes, sel_probs, sel_points = [], [], []
+        for boxes, points, probs, img in zip(all_boxes, all_points,
+                                             all_probs, imgs):
+            boxes, probs = np.asarray(boxes), np.asarray(probs)
+            points = np.asarray(points)
+            if len(boxes) == 0:
+                sel_boxes.append(None)
+                sel_probs.append([None])
+                sel_points.append(None)
+                continue
+            area = (boxes[:, 2] - boxes[:, 0]) * (boxes[:, 3] - boxes[:, 1])
+            if method == "largest":
+                order = np.argsort(area)[::-1]
+            elif method == "probability":
+                order = np.argsort(probs)[::-1]
+            elif method == "center_weighted_size":
+                img_arr = np.asarray(img)
+                center = (img_arr.shape[1] / 2, img_arr.shape[0] / 2)
+                centers = np.stack([(boxes[:, 0] + boxes[:, 2]) / 2,
+                                    (boxes[:, 1] + boxes[:, 3]) / 2], axis=1)
+                off2 = np.sum((centers - center) ** 2, axis=1)
+                order = np.argsort(area - off2 * center_weight)[::-1]
+            elif method == "largest_over_threshold":
+                mask = probs > threshold
+                if mask.sum() == 0:
+                    sel_boxes.append(None)
+                    sel_probs.append([None])
+                    sel_points.append(None)
+                    continue
+                boxes, probs, points = boxes[mask], probs[mask], points[mask]
+                order = np.argsort((boxes[:, 2] - boxes[:, 0])
+                                   * (boxes[:, 3] - boxes[:, 1]))[::-1]
+            else:
+                raise ValueError(f"Unknown selection method '{method}'")
+            sel_boxes.append(boxes[order][[0]])
+            sel_probs.append(probs[order][[0]])
+            sel_points.append(points[order][[0]])
+        if batch_mode:
+            return (np.array(sel_boxes, dtype=object),
+                    np.array(sel_probs, dtype=object),
+                    np.array(sel_points, dtype=object))
+        return sel_boxes[0], sel_probs[0][0], sel_points[0]
+
+    def extract(self, img, batch_boxes, save_path=None):
+        """Faces cropped with ``margin`` and resized to ``image_size``
+        (float [S, S, 3], or [n, S, S, 3] with ``keep_all``), standardised
+        when ``post_process``. ``save_path`` writes the unstandardised
+        crops as PNG; extra faces get a ``_<i>`` suffix."""
+        imgs, batch_mode = self._as_batch(img)
+        if not batch_mode:
+            batch_boxes = [batch_boxes]
+        if isinstance(save_path, str):
+            save_path = [save_path]
+        if save_path is None:
+            save_path = [None] * imgs.shape[0]
+        faces = []
+        for i, box_im in enumerate(batch_boxes):
+            if box_im is None or len(box_im) == 0:
+                faces.append(None)
+                continue
+            box_im = np.asarray(box_im, dtype=np.float32)
+            if not self.keep_all:
+                box_im = box_im[[0]]
+            face_list = []
+            for j, box in enumerate(box_im):
+                face = extract_face(imgs[i], box, self.image_size,
+                                    self.margin)
+                path_im = save_path[i]
+                if path_im is not None:
+                    if j > 0:
+                        stem, ext = os.path.splitext(path_im)
+                        path_im = f"{stem}_{j + 1}{ext}"
+                    os.makedirs(os.path.dirname(os.path.abspath(path_im)),
+                                exist_ok=True)
+                    write_png(path_im,
+                              np.clip(face, 0, 255).astype(np.uint8))
+                if self.post_process:
+                    face = (face - 127.5) / 128.0
+                face_list.append(face)
+            faces.append(np.stack(face_list) if self.keep_all
+                         else face_list[0])
+        return faces if batch_mode else faces[0]
+
+    def __call__(self, img, save_path=None, return_prob=False,
+                 extract_face_flag=True):
+        batch_boxes, batch_probs, batch_points = self.detect(img,
+                                                             landmarks=True)
+        if not self.keep_all:
+            batch_boxes, batch_probs, batch_points = self.select_boxes(
+                batch_boxes, batch_probs, batch_points, img,
+                method=self.selection_method)
+        faces = (self.extract(img, batch_boxes, save_path)
+                 if extract_face_flag else None)
+        if return_prob:
+            return faces, batch_boxes, batch_probs
+        return faces, batch_boxes
+
+    def eval(self):
+        return self
+
+
+def extract_face(img, box, image_size=160, margin=0):
+    """Crop + margin + PIL-exact bilinear resize on the host.
+    img: uint8 [H, W, 3]; returns float32 [S, S, 3]."""
+    margin_px = [
+        margin * (box[2] - box[0]) / (image_size - margin),
+        margin * (box[3] - box[1]) / (image_size - margin),
+    ] if margin else [0, 0]
+    h, w = img.shape[:2]
+    x1 = int(max(box[0] - margin_px[0] / 2, 0))
+    y1 = int(max(box[1] - margin_px[1] / 2, 0))
+    x2 = int(min(box[2] + margin_px[0] / 2, w))
+    y2 = int(min(box[3] + margin_px[1] / 2, h))
+    crop = np.ascontiguousarray(img[y1:y2, x1:x2])
+    return resize_bilinear(crop, (image_size, image_size)).astype(np.float32)

@@ -32,37 +32,13 @@ def pairwise_iou(boxes_a, boxes_b, offset=0.0, min_mode=False):
 
 def batched_nms_keep_mask(boxes, scores, valid, iou_thr, offset=0.0,
                           min_mode=False):
-    """Exact greedy NMS keep mask for each row of a batch.
+    """Exact greedy NMS keep mask for each row of a batch: boxes
+    [N, K, 4], scores [N, K], valid [N, K] bool -> keep [N, K] bool.
+    Kernel K3 on the card, its plain version on the CPU
+    (``ops.nms.nms_keep_mask``)."""
+    from .nms import nms_keep_mask as k3
 
-    boxes [N, K, 4], scores [N, K], valid [N, K] bool -> keep [N, K] bool
-    in the original row order. Priority is descending score with ties
-    broken by lower index; box j suppresses box i when j has priority,
-    is kept, and iou(j, i) > iou_thr (strict).
-
-    Greedy NMS is the unique fixpoint of
-    ``keep = valid & ~any_j(sup[j, i] & keep[j])``; iterating from
-    ``keep = valid`` reaches it after as many sweeps as the longest
-    suppression chain (a handful in practice), each sweep one batched
-    matrix-vector product. Each convergence check reads one flag on the
-    host.
-    """
-    n, k = scores.shape
-    neg_inf = torch.tensor(float("-inf"), dtype=scores.dtype,
-                           device=scores.device)
-    s = torch.where(valid, scores, neg_inf)
-    iou = pairwise_iou(boxes, boxes, offset=offset, min_mode=min_mode)
-    idx = torch.arange(k, device=scores.device)
-    higher = (s[:, :, None] > s[:, None, :]) | (
-        (s[:, :, None] == s[:, None, :]) & (idx[:, None] < idx[None, :]))
-    sup = (higher & (iou > iou_thr) & valid[:, :, None]).to(torch.float32)
-    keep = valid
-    for _ in range(k + 1):
-        hits = torch.bmm(keep.to(torch.float32)[:, None, :], sup)[:, 0]
-        new_keep = valid & ~(hits > 0.0)
-        if torch.equal(new_keep, keep):
-            break
-        keep = new_keep
-    return keep
+    return k3(boxes, scores, valid, iou_thr, offset, min_mode)
 
 
 def nms_keep_mask(boxes, scores, valid, iou_thr, offset=0.0, min_mode=False):

@@ -6,9 +6,8 @@ like with like.
 
 * ``area_resize`` / ``pyramid_area_resize``: adaptive-average-pool resize
   as two matmuls against the exact pooling matrices (``_area_weights``).
-* ``grouped_crop_area_resize``: integer crop + adaptive average pool, the
-  GPU way: an int32 integral image and four corner reads per output cell.
-  Bit-exact on uint8-valued input.
+* ``grouped_crop_area_resize``: integer crop + adaptive average pool
+  (kernel K4, ``ops.crop``), bit-exact on uint8-valued input.
 * ``warp_affine`` / ``batched_warp_affine``: cv2 ``BORDER_CONSTANT``
   bilinear warp, border per tap, tap validity from the unclipped floor.
 """
@@ -17,6 +16,8 @@ from functools import lru_cache
 
 import numpy as np
 import torch
+
+from . import crop as _crop
 
 
 @lru_cache(maxsize=256)
@@ -87,68 +88,13 @@ def pyramid_area_resize(images, sizes):
 # ---------------------------------------------------------------------------
 
 
-def integral_image(images):
-    """Zero-padded 2-D prefix sums [B, H, W, C] -> [B, H+1, W+1, C] int32.
-
-    Inputs are uint8-valued pixels, so int32 sums are exact for images up
-    to ~8.4M pixels."""
-    px = torch.round(images).to(torch.int32)
-    s = torch.cumsum(torch.cumsum(px, dim=1, dtype=torch.int32), dim=2,
-                     dtype=torch.int32)
-    return torch.nn.functional.pad(s, (0, 0, 1, 0, 1, 0))
-
-
-def _area_pool_bounds(lo, hi, size):
-    """Adaptive-pool cell bounds along one axis, computed in f32 exactly
-    as the reference does. lo/hi: [K] 1-based inclusive crop bounds.
-    Returns (p0, p1) [K, size] absolute 0-based pixel bounds (floats)."""
-    o = torch.arange(size, dtype=torch.float32, device=lo.device)
-    extent = hi - lo + 1.0
-    r0 = torch.floor(o[None, :] * extent[:, None] / size)
-    r1 = torch.ceil((o[None, :] + 1.0) * extent[:, None] / size)
-    r1 = torch.minimum(torch.maximum(r1, r0 + 1.0), extent[:, None])
-    return lo[:, None] - 1.0 + r0, lo[:, None] - 1.0 + r1
-
-
-def _clamped_index(p, size):
-    return torch.clamp(p, 0.0, float(size)).to(torch.int64)
-
-
 def grouped_crop_area_resize(images, boxes, size):
     """Exact integer crop ``imgs[y1-1:y2, x1-1:x2]`` + adaptive average
-    pool to (size, size), grouped per frame.
-
-    images: [B, H, W, C] float (uint8-valued); boxes: [B, K, 4] 1-based
-    inclusive integer-valued floats (``clamp_boxes`` output).
-    Returns [B, K, S, S, C] f32.
-
-    Each output cell is four corner reads of an int32 integral image, so
-    the sum is exact; the division by the cell area is the same f32
-    division the reference performs, which makes the result bit-exact.
-    Empty or inverted cells (boxes off the frame) sum to zero.
-    """
-    b, h, w, c = images.shape
-    k = boxes.shape[1]
-    flat = boxes.reshape(b * k, 4).to(torch.float32)
-    py0, py1 = _area_pool_bounds(flat[:, 1], flat[:, 3], size)
-    px0, px1 = _area_pool_bounds(flat[:, 0], flat[:, 2], size)
-    wy = py1 - py0
-    wx = px1 - px0
-    y0 = _clamped_index(py0, h)
-    y1 = torch.maximum(_clamped_index(py1, h), y0)
-    x0 = _clamped_index(px0, w)
-    x1 = torch.maximum(_clamped_index(px1, w), x0)
-
-    integ = integral_image(images)  # [B, H+1, W+1, C]
-    bi = torch.arange(b, device=images.device).repeat_interleave(k)
-    bi = bi[:, None, None]
-    ya, yb = y0[:, :, None], y1[:, :, None]
-    xa, xb = x0[:, None, :], x1[:, None, :]
-    sums = (integ[bi, yb, xb] - integ[bi, ya, xb]
-            - integ[bi, yb, xa] + integ[bi, ya, xa])  # [BK, S, S, C]
-    norm = (wy[:, :, None] * wx[:, None, :])[..., None]
-    out = sums.to(torch.float32) / torch.clamp(norm, min=1.0)
-    return out.reshape(b, k, size, size, c)
+    pool to (size, size), grouped per frame: images [B, H, W, 3]
+    (uint8-valued), boxes [B, K, 4] 1-based inclusive integer-valued
+    floats -> [B, K, S, S, 3] f32. Kernel K4 on the card, its plain
+    version on the CPU (``ops.crop``)."""
+    return _crop.grouped_crop_area_resize(images, boxes, size)
 
 
 # ---------------------------------------------------------------------------

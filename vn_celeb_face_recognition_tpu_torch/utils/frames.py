@@ -1,6 +1,7 @@
-"""Bench frame construction without PIL: a zlib + numpy PNG reader, a
-numpy copy of PIL's bicubic resize, and ``build_frames`` (a mirror of
-``bench.build_frames``: real face crops pasted on a flat background).
+"""Images without PIL: a zlib + numpy PNG reader and writer, numpy
+copies of PIL's bicubic and bilinear resizes, and ``build_frames`` (a
+mirror of ``bench.build_frames``: real face crops pasted on a flat
+background).
 """
 
 import glob
@@ -92,11 +93,39 @@ def read_png(path):
     return _unfilter(rows, 3).reshape(h, w, 3)
 
 
+def _png_chunk(ctype, data):
+    return (struct.pack(">I", len(data)) + ctype + data
+            + struct.pack(">I", zlib.crc32(ctype + data) & 0xFFFFFFFF))
+
+
+def write_png(path, img):
+    """Encode [H, W, 3] uint8 as an 8-bit RGB PNG (filter 0 on every
+    row); ``read_png`` and PIL read it back unchanged."""
+    img = np.ascontiguousarray(img, dtype=np.uint8)
+    if img.ndim != 3 or img.shape[2] != 3:
+        raise ValueError(f"expected [H, W, 3] uint8, got {img.shape}")
+    h, w = img.shape[:2]
+    rows = np.concatenate([np.zeros((h, 1), np.uint8),
+                           img.reshape(h, w * 3)], axis=1)
+    data = (_PNG_SIG
+            + _png_chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 2, 0, 0,
+                                              0))
+            + _png_chunk(b"IDAT", zlib.compress(rows.tobytes(), 6))
+            + _png_chunk(b"IEND", b""))
+    with open(path, "wb") as fh:
+        fh.write(data)
+
+
 # ---------------------------------------------------------------------------
-# PIL's bicubic resize (8-bit, fixed point), in numpy
+# PIL's bicubic and bilinear resizes (8-bit, fixed point), in numpy
 # ---------------------------------------------------------------------------
 
 _PRECISION_BITS = 32 - 8 - 2
+
+
+def _bilinear(x):
+    x = np.abs(x)
+    return np.where(x < 1.0, 1.0 - x, 0.0)
 
 
 def _bicubic(x):
@@ -107,20 +136,20 @@ def _bicubic(x):
         np.where(x < 2.0, (((x - 5.0) * x + 8.0) * x - 4.0) * a, 0.0))
 
 
-def _resample_matrix(in_size, out_size):
+def _resample_matrix(in_size, out_size, filt, support):
     """[out, in] int64 fixed-point coefficients, as PIL computes them
-    (support 2 scaled by the reduction factor, normalised per output,
-    rounded to 22 fractional bits)."""
+    (the filter's support scaled by the reduction factor, normalised per
+    output, rounded to 22 fractional bits)."""
     scale = in_size / out_size
     filterscale = max(scale, 1.0)
-    support = 2.0 * filterscale
+    support = support * filterscale
     mat = np.zeros((out_size, in_size), dtype=np.int64)
     for xx in range(out_size):
         center = (xx + 0.5) * scale
         xmin = max(int(center - support + 0.5), 0)
         xmax = min(int(center + support + 0.5), in_size)
         xs = np.arange(xmin, xmax)
-        k = _bicubic((xs - center + 0.5) / filterscale)
+        k = filt((xs - center + 0.5) / filterscale)
         ww = k.sum()
         if ww != 0.0:
             k = k / ww
@@ -135,19 +164,29 @@ def _clip8(acc):
     return np.clip(acc, 0, 255).astype(np.uint8)
 
 
+def _resize(img, size, filt, support):
+    out_w, out_h = size
+    x = img
+    if out_w != x.shape[1]:
+        m = _resample_matrix(x.shape[1], out_w, filt, support)
+        x = _clip8(np.einsum("ow,hwc->hoc", m, x.astype(np.int64)))
+    if out_h != x.shape[0]:
+        m = _resample_matrix(x.shape[0], out_h, filt, support)
+        x = _clip8(np.einsum("oh,hwc->owc", m, x.astype(np.int64)))
+    return x
+
+
 def resize_bicubic(img, size):
     """[H, W, C] uint8 -> [size[1], size[0], C] uint8, equal to PIL's
     ``Image.resize(size)`` (BICUBIC) on an RGB image: a horizontal pass,
     then a vertical one, each rounded to 8 bits."""
-    out_w, out_h = size
-    x = img
-    if out_w != x.shape[1]:
-        m = _resample_matrix(x.shape[1], out_w)
-        x = _clip8(np.einsum("ow,hwc->hoc", m, x.astype(np.int64)))
-    if out_h != x.shape[0]:
-        m = _resample_matrix(x.shape[0], out_h)
-        x = _clip8(np.einsum("oh,hwc->owc", m, x.astype(np.int64)))
-    return x
+    return _resize(img, size, _bicubic, 2.0)
+
+
+def resize_bilinear(img, size):
+    """The same with PIL's triangle filter (``Image.BILINEAR``, support
+    1), as ``Image.fromarray(img).resize(size, Image.BILINEAR)``."""
+    return _resize(img, size, _bilinear, 1.0)
 
 
 def face_files():

@@ -30,6 +30,7 @@ ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_F = ctypes.c_float
 _NP = ctypes.POINTER(ctypes.c_int)
 # C entry points: name -> argtypes. Pointers and the stream are c_void_p,
 # ints are c_int; every function returns cudaGetLastError() as an int.
@@ -49,11 +50,21 @@ SIGNATURES = {
     # launches
     "vn_bottleneck_block": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                             _I, _I, _I, _I, _I, _I, _P, _NP],
+    # boxes, scores, valid, keep, N, K, iou_thr, offset, min_mode, stream
+    "vn_nms_keep_mask": [_P, _P, _P, _P, _I, _I, _F, _F, _I, _P],
+    # frames, integ, B, H, W, stream, launches
+    "vn_integral_image": [_P, _P, _I, _I, _I, _P, _NP],
+    # integ, y0, y1, x0, x1, wy, wx, out, B, K, H, W, S, stream
+    "vn_crop_area_pool": [_P, _P, _P, _P, _P, _P, _P, _P,
+                          _I, _I, _I, _I, _I, _P],
+    # crops, weights, out, N, net (0 RNet, 1 ONet), bf16, stream
+    "vn_crop_net_trunk": [_P, _P, _P, _I, _I, _I, _P],
 }
 
 
 _LAUNCHES = {"pnet_chain": 0, "similarity_warp": 0, "mnet_stage1": 0,
-             "emotion_stem": 0, "bottleneck_chain": 0}
+             "emotion_stem": 0, "bottleneck_chain": 0, "nms_keep_mask": 0,
+             "crop_area_resize": 0, "crop_net_trunk": 0}
 
 
 def count_launch(name, n=1):
