@@ -22,15 +22,21 @@ Phases, one line of output each (a failed phase exits non-zero):
    1. card: torch version, nvidia-smi name and power limit, sm_90 check;
    2. build: compiles csrc/*.cu with nvcc (one process per source);
    3. K2 (pnet_chain) vs the per-level PNet forward, bench shapes, f32;
-   4. K1 (similarity_warp) vs the plain bilinear warp, 512 faces, and
-      F.grid_sample as the library yardstick;
+   4. K1 (similarity_warp) vs the plain bilinear warp, 512 faces: the
+      windows form with F.grid_sample on the same f32 windows as the
+      library yardstick, and the frames form (uint8 frames, the engine's
+      path) timed against gather + cast + windows form; the kernel's tile
+      boxes held to ops.warp.footprint_boxes; each form's bound counts the
+      distinct source pixels that valid taps read (for the frames form,
+      frame pixels that overlapping windows share count once);
    5. K3 (nms_keep_mask) keep masks equal to the plain fixpoint at six
       shapes (stock per-scale, cross-scale, ONet stage, RetinaFace, one
       set of 4,096, all-equal scores);
    6. K4 (crop_area_resize) bit-exact to the plain integral-image crops
       on the stock chunk at S = 24 and 48;
    7. K5 (crop_net_trunk) vs the nets' cuDNN modules at the stock line's
-      crop counts;
+      crop counts (bf16 on the tensor cores, f32 on 1,024 crops), RNet
+      and ONet timed apart with their TFLOP/s and GB/s;
    8. the default slice: chunks with launch counters reset just before
       and read just after, held to exact per-run counts;
    9. its profile: device busy time of one chunk under torch.profiler;
@@ -48,7 +54,11 @@ Phases, one line of output each (a failed phase exits non-zero):
   20. its card vs CPU in f32 on 2 frames.
 
 Kernel phases check bf16 at the lines' shapes and f32 on a slice of
-them; exact kernels (K3, K4) are held with torch.equal. Then one JSON
+them; exact kernels (K3, K4) are held with torch.equal. Every kernel is
+timed the same way: ``ms`` is the device time of its own grids and
+``plain_ms``/``library_ms`` that of the plain and library calls
+(torch.profiler, mean per call), ``call_ms`` CUDA events around the
+wrapper call, host work included (median of 20). Then one JSON
 line with every kernel's numbers, the card line, and the last line
 {"ok": true, "device": {...}}. Weights are random from a seed, except
 the published MTCNN weights and the fitted RetinaFace weights vendored
@@ -87,6 +97,19 @@ KERNEL_SOURCES = {
     "crop_net_trunk": (f"{PKG}/csrc/crop_net_trunk.cu",
                        f"{JAX_OPS}/crops_net_pallas.py:239"),
 }
+# the device functions each kernel's wrapper launches, by name in
+# torch.profiler's trace: a kernel's ``ms`` is their device time
+KERNEL_GRIDS = {
+    "pnet_chain": ("pnet_chain_kernel",),
+    "similarity_warp": ("similarity_warp_kernel",),
+    "mnet_stage1": ("segment_kernel",),
+    "emotion_stem": ("emotion_stem_kernel",),
+    "bottleneck_chain": ("bottleneck_block_kernel",),
+    "nms_keep_mask": ("nms_keep_kernel",),
+    "crop_area_resize": ("row_scan_kernel", "col_scan_kernel",
+                         "crop_pool_kernel"),
+    "crop_net_trunk": ("crop_net_trunk_mma",),
+}
 # launches per chunk run of an MTCNN line: K2 once, four NMS (K3), one
 # integral image (two grids) and two pools (K4), the RNet and ONet trunks
 # (K5), and one warp (K1)
@@ -122,6 +145,10 @@ PEAK_BF16, PEAK_F32, PEAK_BYTES = 989e12, 67e12, 3.35e12
 # intermediates and folded weights. The plain version run in bf16 rounds
 # after every layer, before BatchNorm's scale, and is printed beside it.
 BF16_REL_L2, BF16_REL_MAX = 1e-2, 5e-2
+# how every kernel phase times (see ``timed``)
+TIMING = ("kernel, plain and library: device time from torch.profiler, mean "
+          "per call; call: CUDA events around the wrapper call, host work "
+          "included, median of 20")
 
 
 def fail(msg):
@@ -155,6 +182,39 @@ def median_ms(torch, fn, runs=20, warmup=3):
         torch.cuda.synchronize()
         times.append(start.elapsed_time(end))
     return sorted(times)[len(times) // 2]
+
+
+def device_ms(torch, fn, names=(), runs=20):
+    """Device time (ms) per call of ``fn()`` spent in the device functions
+    whose name contains one of ``names`` (every one when it is empty), from
+    torch.profiler: the kernels alone, without the host's launch overhead
+    or the wrapper's other work."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(runs):
+            fn()
+        torch.cuda.synchronize()
+    events = [e for e in prof.key_averages()
+              if e.device_type == DeviceType.CUDA]
+    total = sum(e.self_device_time_total for e in events
+                if not names or any(n in e.key for n in names))
+    if total <= 0:
+        fail(f"torch.profiler recorded no device time for {names or 'fn'}; "
+             f"it saw {sorted({e.key[:80] for e in events})}")
+    return total / runs / 1e3
+
+
+def timed(torch, name, fn, plain, plain_runs=20):
+    """One yardstick for every kernel: (ms, call_ms, plain_ms) = the device
+    time per call of kernel ``name``'s own grids in ``fn()``, the median
+    CUDA-event time around the whole wrapper call (its host work
+    included), and the device time per call of ``plain()``."""
+    return (device_ms(torch, fn, KERNEL_GRIDS[name]), median_ms(torch, fn),
+            device_ms(torch, plain, runs=plain_runs))
 
 
 def check_close(torch, got, want, rtol, atol, what):
@@ -409,7 +469,7 @@ def phase_k3(torch, kernels, K3, dev, card, results):
              ("RetinaFace", 128, 1024, 0.4, 1.0, False),
              ("one set", 1, 4096, 0.5, 0.0, False),
              ("all-equal scores", 64, 448, 0.5, 0.0, False)]
-    parts, timed = [], None
+    parts, timed_set = [], None
     for what, n, k, thr, off, mm in cases:
         boxes, scores, valid = nms_sets(torch, gen, n, k, SIZE, dev)
         if what == "all-equal scores":
@@ -423,25 +483,27 @@ def phase_k3(torch, kernels, K3, dev, card, results):
                  "differ from the plain version")
         parts.append(f"{what} {n}x{k} @{thr} off {off:g} min {mm}: "
                      f"{int(got.sum())} kept of {int(valid.sum())}")
-        if timed is None:
-            timed = (boxes, scores, valid, got, thr)
-    boxes, scores, valid, keep, thr = timed
-    ms = median_ms(torch, lambda: K3.nms_keep_mask(boxes, scores, valid, thr))
-    plain_ms = median_ms(torch, lambda: K3.nms_keep_mask_plain(
-        boxes, scores, valid, thr), runs=5)
+        if timed_set is None:
+            timed_set = (boxes, scores, valid, got, thr)
+    boxes, scores, valid, keep, thr = timed_set
+    ms, call_ms, plain_ms = timed(
+        torch, "nms_keep_mask",
+        lambda: K3.nms_keep_mask(boxes, scores, valid, thr),
+        lambda: K3.nms_keep_mask_plain(boxes, scores, valid, thr),
+        plain_runs=5)
     tests = nms_iou_tests(torch, boxes, scores, valid, keep, thr, 0.0, False)
     # 22 bytes a box (boxes, score, valid in; keep out); ~15 f32 operations
     # an IoU test
     bound_ms, bound_by = bound(scores.numel() * 22, tests * 15, PEAK_F32)
-    results["nms_keep_mask"] = dict(max_abs_err=0.0, ms=ms,
+    results["nms_keep_mask"] = dict(max_abs_err=0.0, ms=ms, call_ms=call_ms,
                                     plain_ms=plain_ms, bound_ms=bound_ms,
                                     bound_by=bound_by, library_ms=None)
     phase("K3", "nms_keep_mask keep masks equal (torch.equal): "
-          + "; ".join(parts) + f". Timed at 1408x448: kernel {ms:.3f} ms, "
-          f"plain {plain_ms:.3f} ms, bound {bound_ms:.4f} ms ({bound_by}; "
-          f"{tests} IoU tests); library none (no single PyTorch call "
-          f"computes a batched greedy keep mask) (median of 20 / 5, CUDA "
-          f"events; {card})")
+          + "; ".join(parts) + f". Timed at 1408x448: kernel {ms:.4f} ms, "
+          f"call {call_ms:.4f} ms, plain {plain_ms:.3f} ms, bound "
+          f"{bound_ms:.4f} ms ({bound_by}; {tests} IoU tests); library none "
+          f"(no single PyTorch call computes a batched greedy keep mask) "
+          f"({TIMING}; {card})")
 
 
 def phase_k4(torch, kernels, K4, frames, card, results):
@@ -484,21 +546,25 @@ def phase_k4(torch, kernels, K4, frames, card, results):
         shared = K4.integral_image(frames)
         return [K4.crop_area_pool(shared, bx, s) for s, bx in stages]
 
-    ms = median_ms(torch, cascade_crops)
-    ms_integ = median_ms(torch, lambda: K4.integral_image(frames))
-    plain_ms = median_ms(torch, lambda: [K4.grouped_crop_area_resize_plain(
-        frames, bx, s) for s, bx in stages], runs=5)
+    ms, call_ms, plain_ms = timed(
+        torch, "crop_area_resize", cascade_crops,
+        lambda: [K4.grouped_crop_area_resize_plain(frames, bx, s)
+                 for s, bx in stages], plain_runs=5)
+    ms_integ = device_ms(torch, lambda: K4.integral_image(frames),
+                         KERNEL_GRIDS["crop_area_resize"])
     bound_ms, bound_by = bound(nbytes, 0, PEAK_F32)
     results["crop_area_resize"] = dict(max_abs_err=0.0, ms=ms,
-                                       plain_ms=plain_ms, bound_ms=bound_ms,
-                                       bound_by=bound_by, library_ms=None)
+                                       call_ms=call_ms, plain_ms=plain_ms,
+                                       bound_ms=bound_ms, bound_by=bound_by,
+                                       library_ms=None)
     phase("K4", f"crop_area_resize {b}x{h}x{w} u8, K=256 S=24 and K=128 "
           "S=48 (full-frame, off-frame, inverted boxes): bit-exact "
           f"(torch.equal); integral image + both pools {ms:.3f} ms (the "
-          f"integral image {ms_integ:.3f} ms), plain (integral image per "
-          f"stage) {plain_ms:.3f} ms, bound {bound_ms:.3f} ms ({bound_by}: "
-          "frames in, crops out); library none (no PyTorch call pools many "
-          f"boxes per frame) (median of 20 / 5, CUDA events; {card})")
+          f"integral image {ms_integ:.3f} ms), call {call_ms:.3f} ms, plain "
+          f"(integral image per stage) {plain_ms:.3f} ms, bound "
+          f"{bound_ms:.3f} ms ({bound_by}: frames in, crops out); library "
+          f"none (no PyTorch call pools many boxes per frame) ({TIMING}; "
+          f"{card})")
 
 
 def trunk_flops(spec):
@@ -510,9 +576,10 @@ def trunk_flops(spec):
 
 def phase_k5(torch, kernels, K5, det, card, results):
     """K5 on the stock line's crop counts in bf16 (held to the plain version
-    in f32) and f32 on a slice (1e-4)."""
+    in f32; also on 1,023 crops, an offset view whose last RNet group is
+    part-filled) and f32 on a slice (1e-4)."""
     gen = torch.Generator(device="cuda").manual_seed(12)
-    ms = plain_ms = err = 0.0
+    ms = call_ms = plain_ms = err = 0.0
     nbytes = flops = 0
     parts = []
     for net, spec, n in ((det.rnet, K5.RNET_SPEC, STOCK_BATCH * 256),
@@ -527,31 +594,44 @@ def phase_k5(torch, kernels, K5, det, card, results):
         e, rel_l2, rel_max, plain16 = check_bf16(
             torch, got, want, K5.crop_net_trunk_plain(net, x, spec),
             f"K5 {spec.name} bf16")
+        # a crop count that leaves the last group of RNet's 4 part-filled
+        odd = x[1:1024]
+        check_bf16(torch, K5.crop_net_trunk(net, odd, spec),
+                   want[1:1024], K5.crop_net_trunk_plain(net, odd, spec),
+                   f"K5 {spec.name} bf16, 1023 crops")
         few = x32[:1024]
         want32 = K5.crop_net_trunk_plain(net, few, spec)
         e32 = check_close(torch, K5.crop_net_trunk(net, few, spec), want32,
                           1e-4, 1e-4 * float(want32.abs().max()),
                           f"K5 {spec.name} f32")
-        t_k = median_ms(torch, lambda: K5.crop_net_trunk(net, x, spec))
-        t_p = median_ms(torch, lambda: K5.crop_net_trunk_plain(net, x, spec))
-        ms, plain_ms, err = ms + t_k, plain_ms + t_p, max(err, e)
-        nbytes += (x.numel() + got.numel()) * 2
-        flops += n * trunk_flops(spec)
+        t_k, t_call, t_p = timed(
+            torch, "crop_net_trunk", lambda: K5.crop_net_trunk(net, x, spec),
+            lambda: K5.crop_net_trunk_plain(net, x, spec))
+        ms, call_ms, plain_ms = ms + t_k, call_ms + t_call, plain_ms + t_p
+        err = max(err, e)
+        net_bytes = (x.numel() + got.numel()) * 2
+        net_flops = n * trunk_flops(spec)
+        net_bound, net_by = bound(net_bytes, net_flops, PEAK_BF16)
+        nbytes += net_bytes
+        flops += net_flops
         parts.append(f"{spec.name} {n} crops vs plain f32: max abs err "
                      f"{e:.3e}, rel L2 {rel_l2:.2e}, max/max|ref| "
                      f"{rel_max:.2e} (plain bf16 rel L2 {plain16:.2e}), f32 "
-                     f"kernel on 1024 crops {e32:.3e}; kernel {t_k:.3f} ms, "
-                     f"plain {t_p:.3f} ms")
+                     f"kernel on 1024 crops {e32:.3e}; kernel {t_k:.3f} ms "
+                     f"({net_flops / t_k / 1e9:.1f} TFLOP/s, "
+                     f"{net_bytes / t_k / 1e6:.1f} GB/s; call {t_call:.3f} "
+                     f"ms), bound {net_bound:.3f} ms ({net_by}), plain "
+                     f"{t_p:.3f} ms")
         del raw, x32, x, got, want, few, want32
     bound_ms, bound_by = bound(nbytes, flops, PEAK_BF16)
-    results["crop_net_trunk"] = dict(max_abs_err=err, ms=ms,
+    results["crop_net_trunk"] = dict(max_abs_err=err, ms=ms, call_ms=call_ms,
                                      plain_ms=plain_ms, bound_ms=bound_ms,
                                      bound_by=bound_by, library_ms=None)
     phase("K5", "crop_net_trunk bf16: " + "; ".join(parts) + f"; both "
-          f"{ms:.3f} ms, plain {plain_ms:.3f} ms, bound {bound_ms:.3f} ms "
-          f"({bound_by}, {flops / 1e9:.1f} GFLOP at the bf16 peak); library "
-          "none (no single PyTorch call computes conv + PReLU + pool + conv "
-          f"+ PReLU) (median of 20, CUDA events; {card})")
+          f"{ms:.3f} ms (call {call_ms:.3f} ms), plain {plain_ms:.3f} ms, "
+          f"bound {bound_ms:.3f} ms ({bound_by}, {flops / 1e9:.1f} GFLOP at "
+          "the bf16 peak); library none (no single PyTorch call computes "
+          f"conv + PReLU + pool + conv + PReLU) ({TIMING}; {card})")
 
 
 def mnet_stage1_flops(h, w):
@@ -584,6 +664,176 @@ def pnet_flops(sizes):
         flops += 2 * (hc + 2) * (wc + 2) * 16 * 90
         flops += 2 * hc * wc * (32 * 144 + 6 * 32)
     return flops
+
+
+def warp_footprint_pixels(torch, mats, win, out_size, frames_at=None):
+    """Distinct source pixels that valid bilinear taps read: what a warp
+    must fetch at least once. Without ``frames_at`` each face's window is
+    its own source (the windows form); with ``frames_at = (image_idx, oy,
+    ox, (B, H, W))`` the faces' windows lie in shared frames (the frames
+    form), and a frame pixel that the taps of several windows read counts
+    once."""
+    from vn_celeb_face_recognition_tpu_torch.ops.image import invert_affine
+
+    k, dev = mats.shape[0], mats.device
+    inv = invert_affine(mats)[:, :, :, None, None]
+    ar = torch.arange(out_size, dtype=torch.float32, device=dev)
+    yy, xx = torch.meshgrid(ar, ar, indexing="ij")
+    y0 = torch.floor(inv[:, 1, 0] * xx + inv[:, 1, 1] * yy + inv[:, 1, 2])
+    x0 = torch.floor(inv[:, 0, 0] * xx + inv[:, 0, 1] * yy + inv[:, 0, 2])
+    if frames_at is None:
+        row0 = torch.arange(k, device=dev)[:, None, None] * win
+        col0, width, size = 0, win, k * win * win
+    else:
+        image_idx, oy, ox, (b, h, w) = frames_at
+        row0 = (image_idx.long() * h + oy.long())[:, None, None]
+        col0, width, size = ox.long()[:, None, None], w, b * h * w
+    seen = torch.zeros(size, dtype=torch.bool, device=dev)
+    for dy in (0, 1):
+        for dx in (0, 1):
+            y, x = y0 + dy, x0 + dx
+            ok = (y >= 0) & (y <= win - 1) & (x >= 0) & (x <= win - 1)
+            idx = (row0 + y.clamp(0, win - 1).long()) * width + col0 \
+                + x.clamp(0, win - 1).long()
+            seen[idx[ok]] = True
+    return int(seen.sum())
+
+
+def similarity_mats(gen, k, lo, hi):
+    """``k`` similarity maps from a 224 px window to a 112 px face at
+    scales ``lo``-``hi`` in all four quadrants, the window's centre landing
+    near the face's."""
+    th = gen.uniform(-np.pi, np.pi, k)
+    sc = gen.uniform(lo, hi, k)
+    lin = np.stack([np.stack([np.cos(th) * sc, -np.sin(th) * sc], -1),
+                    np.stack([np.sin(th) * sc, np.cos(th) * sc], -1)], 1)
+    t = (55.5 + gen.uniform(-8, 8, (k, 2))
+         - np.einsum("kij,j->ki", lin, np.array([111.5, 111.5])))
+    return np.concatenate([lin, t[:, :, None]], -1).astype(np.float32)
+
+
+def check_k1_boxes(torch, K1, mats, win, out_size):
+    """The kernel's own tile boxes and stage decisions
+    (``kernel_footprint_boxes``) equal ``ops.warp.footprint_boxes``, the
+    rule the CPU tests hold to every valid tap: on ``mats`` and on 64 faces
+    shrunk to 0.15-0.4, where boxes outgrow a stage buffer in either type.
+    Returns the staged share of ``mats``' tiles by source type."""
+    small = torch.from_numpy(similarity_mats(np.random.default_rng(5), 64,
+                                             0.15, 0.4)).to(mats.device)
+    both = torch.cat([mats, small])
+    shares = {}
+    for dt in (torch.uint8, torch.float32):
+        kb, ks = K1.kernel_footprint_boxes(both, out_size, win, dt)
+        pb, ps = K1.footprint_boxes(both.cpu(), out_size, win, dt)
+        kb, ks = kb.cpu(), ks.cpu()
+        if not (torch.equal(kb, pb) and torch.equal(ks, ps)):
+            fail(f"K1 {dt} tile boxes: the kernel and footprint_boxes differ "
+                 f"in {int((kb != pb).any(-1).sum())} boxes and "
+                 f"{int((ks != ps).sum())} stage decisions")
+        if bool(ks.all()) or not bool(ks.any()):
+            fail(f"K1 {dt} box check saw only staged or only unstaged tiles")
+        shares[dt] = float(ks[:mats.shape[0]].float().mean())
+    return shares
+
+
+def phase_k1(torch, F, kernels, K1, frames, card, results):
+    """K1 on the production line's 512 faces: the windows form (f32
+    windows cut from the frames, with F.grid_sample on the same windows as
+    the library yardstick) and the frames form the engine runs (the uint8
+    frames and per-face window origins), each held to its plain version;
+    the fused frames form timed against gather + cast + windows form; the
+    kernel's tile boxes held to ``ops.warp.footprint_boxes``."""
+    gen = np.random.default_rng(0)
+    dev = frames.device
+    k, n = PROD_FACES, 224
+    idx, oy, ox = (torch.from_numpy(gen.integers(0, hi, k)).to(
+        device=dev, dtype=torch.int32) for hi in (BATCH, SIZE - n, SIZE - n))
+    windows = K1.cut_windows(frames, idx, oy, ox, n)
+    mats = torch.from_numpy(similarity_mats(gen, k, 0.4, 1.2)).to(dev)
+    got = through_kernel(kernels, "similarity_warp",
+                         lambda: K1.similarity_warp(windows, mats, 112))
+    want = K1.similarity_warp_plain(windows, mats, 112)
+    torch.cuda.synchronize()
+    err_w = check_close(torch, got, want, 0.0, 1e-2, "K1 windows form")
+    got_f = through_kernel(kernels, "similarity_warp",
+                           lambda: K1.similarity_warp_frames(
+                               frames, idx, oy, ox, n, mats, 112))
+    want_f = K1.similarity_warp_frames_plain(frames, idx, oy, ox, n, mats,
+                                             112)
+    torch.cuda.synchronize()
+    err_f = check_close(torch, got_f, want_f, 0.0, 1e-2, "K1 frames form")
+    shares = check_k1_boxes(torch, K1, mats, n, 112)
+    ms_w = device_ms(torch, lambda: K1.similarity_warp(windows, mats, 112),
+                     KERNEL_GRIDS["similarity_warp"])
+    ms_f, call_f, plain_ms = timed(
+        torch, "similarity_warp",
+        lambda: K1.similarity_warp_frames(frames, idx, oy, ox, n, mats, 112),
+        lambda: K1.similarity_warp_frames_plain(frames, idx, oy, ox, n,
+                                                mats, 112))
+    ms_cut = median_ms(torch, lambda: K1.similarity_warp(
+        K1.cut_windows(frames, idx, oy, ox, n), mats, 112))
+    # library yardstick: F.grid_sample (zeros padding, align_corners)
+    # on the same f32 windows with the sampling grid built outside the
+    # timing
+    from vn_celeb_face_recognition_tpu_torch.ops.image import invert_affine
+
+    inv = invert_affine(mats)
+    ys, xs = torch.meshgrid(torch.arange(112., device=dev),
+                            torch.arange(112., device=dev), indexing="ij")
+    sx = inv[:, 0, 0, None, None] * xs + inv[:, 0, 1, None, None] * ys \
+        + inv[:, 0, 2, None, None]
+    sy = inv[:, 1, 0, None, None] * xs + inv[:, 1, 1, None, None] * ys \
+        + inv[:, 1, 2, None, None]
+    grid = torch.stack([sx, sy], -1) * (2.0 / (n - 1)) - 1.0
+    win_nchw = windows.permute(0, 3, 1, 2)
+
+    def grid_sample():
+        return F.grid_sample(win_nchw, grid, mode="bilinear",
+                             padding_mode="zeros", align_corners=True)
+
+    lib_err = float((grid_sample().permute(0, 2, 3, 1) - want).abs().max())
+    library_ms = device_ms(torch, grid_sample) if lib_err <= 1e-2 else None
+    call_lib = median_ms(torch, grid_sample)
+    # bounds: bytes the function must move. The old bound charged the whole
+    # f32 window stack. The windows form must read the distinct pixels of
+    # each window that valid taps read, in f32; the frames form the
+    # distinct frame pixels that they read, in uint8, however many windows
+    # share them, and its three int32 per face. Both add mats and the
+    # output.
+    out_bytes = got.numel() * 4 + mats.numel() * 4
+    flops = got.numel() * 12
+    old_ms, _ = bound(windows.numel() * 4 + out_bytes, flops, PEAK_F32)
+    win_px = warp_footprint_pixels(torch, mats, n, 112)
+    frame_px = warp_footprint_pixels(torch, mats, n, 112,
+                                     (idx, oy, ox, frames.shape[:3]))
+    bytes_w = win_px * 3 * 4 + out_bytes
+    bytes_f = frame_px * 3 + k * 3 * 4 + out_bytes
+    bound_w, _ = bound(bytes_w, flops, PEAK_F32)
+    bound_ms, bound_by = bound(bytes_f, flops, PEAK_F32)
+    results["similarity_warp"] = dict(
+        max_abs_err=max(err_w, err_f), ms=ms_f, call_ms=call_f,
+        plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+        library_ms=library_ms)
+    lib = (f"{library_ms:.4f} ms ({bytes_w / library_ms / 1e6:.0f} GB/s of "
+           "the windows form's bytes)" if library_ms else "not timed")
+    phase("K1", f"similarity_warp K={k} N={n} -> 112, scales 0.4-1.2 in "
+          f"all quadrants ({TIMING}). Tile boxes equal "
+          f"ops.warp.footprint_boxes in both source types; staged tiles "
+          f"{shares[torch.uint8]:.2%} (uint8), {shares[torch.float32]:.2%} "
+          f"(f32). Windows form (f32 windows): max abs err {err_w:.3e} (atol "
+          f"1e-2 on 0-255), kernel {ms_w:.4f} ms ({bytes_w / ms_w / 1e6:.0f}"
+          f" GB/s), bound {bound_w:.4f} ms ({win_px} window pixels read, "
+          f"{win_px / (k * n * n):.1%} of the windows, in f32). Library: "
+          f"F.grid_sample on the same f32 windows, max abs diff "
+          f"{lib_err:.3e}, kernel {lib}, call {call_lib:.4f} ms. Frames "
+          f"form (uint8 frames {tuple(frames.shape)}, the engine's path): "
+          f"max abs diff vs the plain cut + warp {err_f:.3e} (atol 1e-2), "
+          f"kernel {ms_f:.4f} ms ({bytes_f / ms_f / 1e6:.0f} GB/s), call "
+          f"{call_f:.4f} ms vs gather + cast + windows form call "
+          f"{ms_cut:.4f} ms, plain {plain_ms:.3f} ms, bound {bound_ms:.4f} "
+          f"ms ({bound_by}: {frame_px} distinct frame pixels read, in "
+          f"uint8); the old bound on the whole f32 window stack "
+          f"{old_ms:.4f} ms ({card})")
 
 
 def main():
@@ -668,78 +918,24 @@ def main():
     for (gp, gr), (wp, wr), s in zip(got, want, sizes):
         err = max(err, check_close(torch, gp, wp, 1e-4, 1e-5, f"K2 p {s}"),
                   check_close(torch, gr, wr, 1e-4, 1e-5, f"K2 reg {s}"))
-    ms = median_ms(torch, lambda: K2.pnet_chain(det.pnet, planes))
-    plain_ms = median_ms(torch, lambda: K2.pnet_chain_plain(det.pnet, planes))
+    ms, call_ms, plain_ms = timed(
+        torch, "pnet_chain", lambda: K2.pnet_chain(det.pnet, planes),
+        lambda: K2.pnet_chain_plain(det.pnet, planes))
     cells = sum(BATCH * np.prod(K2.level_cells(*s)) for s in sizes)
     nbytes = sum(p.numel() * 4 for p in planes) + cells * 5 * 4
     bound_ms, bound_by = bound(nbytes, BATCH * pnet_flops(sizes), PEAK_F32)
-    results["pnet_chain"] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                                 bound_ms=bound_ms, bound_by=bound_by,
-                                 library_ms=None)
+    results["pnet_chain"] = dict(max_abs_err=err, ms=ms, call_ms=call_ms,
+                                 plain_ms=plain_ms, bound_ms=bound_ms,
+                                 bound_by=bound_by, library_ms=None)
     phase("K2", f"pnet_chain {BATCH}x{SIZE}x{SIZE}, levels "
           f"{[s[0] for s in sizes]}, f32: max abs err {err:.3e} "
-          f"(rtol 1e-4, atol 1e-5); kernel {ms:.3f} ms, plain {plain_ms:.3f}"
-          f" ms, bound {bound_ms:.3f} ms ({bound_by}) (median of 20, CUDA "
-          f"events; {card})")
+          f"(rtol 1e-4, atol 1e-5); kernel {ms:.3f} ms, call {call_ms:.3f} "
+          f"ms, plain {plain_ms:.3f} ms, bound {bound_ms:.3f} ms "
+          f"({bound_by}) ({TIMING}; {card})")
     del planes, got, want
 
     # ---- 4. K1 vs plain ------------------------------------------------
-    gen = np.random.default_rng(0)
-    k, n = PROD_FACES, 224
-    idx = torch.from_numpy(gen.integers(0, BATCH, k)).to(dev)
-    oy = torch.from_numpy(gen.integers(0, SIZE - n, k)).to(dev)
-    ox = torch.from_numpy(gen.integers(0, SIZE - n, k)).to(dev)
-    ar = torch.arange(n, device=dev)
-    windows = frames[idx[:, None, None], oy[:, None, None] + ar[None, :, None],
-                     ox[:, None, None] + ar[None, None, :]].to(torch.float32)
-    th = gen.uniform(-np.pi, np.pi, k)  # all four quadrants
-    sc = gen.uniform(0.4, 1.2, k)
-    lin = np.stack([np.stack([np.cos(th) * sc, -np.sin(th) * sc], -1),
-                    np.stack([np.sin(th) * sc, np.cos(th) * sc], -1)], 1)
-    t = (55.5 + gen.uniform(-8, 8, (k, 2))
-         - np.einsum("kij,j->ki", lin, np.array([111.5, 111.5])))
-    mats = torch.from_numpy(np.concatenate([lin, t[:, :, None]], -1).astype(
-        np.float32)).to(dev)
-    got = through_kernel(kernels, "similarity_warp",
-                         lambda: K1.similarity_warp(windows, mats, 112))
-    want = K1.similarity_warp_plain(windows, mats, 112)
-    torch.cuda.synchronize()
-    err = check_close(torch, got, want, 0.0, 1e-2, "K1")
-    ms = median_ms(torch, lambda: K1.similarity_warp(windows, mats, 112))
-    plain_ms = median_ms(torch, lambda: K1.similarity_warp_plain(
-        windows, mats, 112))
-    # library yardstick: F.grid_sample (zeros padding, align_corners)
-    # on the same windows with the sampling grid built outside the timing
-    from vn_celeb_face_recognition_tpu_torch.ops.image import invert_affine
-
-    inv = invert_affine(mats)
-    ys, xs = torch.meshgrid(torch.arange(112., device=dev),
-                            torch.arange(112., device=dev), indexing="ij")
-    sx = inv[:, 0, 0, None, None] * xs + inv[:, 0, 1, None, None] * ys \
-        + inv[:, 0, 2, None, None]
-    sy = inv[:, 1, 0, None, None] * xs + inv[:, 1, 1, None, None] * ys \
-        + inv[:, 1, 2, None, None]
-    grid = torch.stack([sx, sy], -1) * (2.0 / (n - 1)) - 1.0
-    win_nchw = windows.permute(0, 3, 1, 2)
-
-    def grid_sample():
-        return F.grid_sample(win_nchw, grid, mode="bilinear",
-                             padding_mode="zeros", align_corners=True)
-
-    lib_err = float((grid_sample().permute(0, 2, 3, 1) - want).abs().max())
-    library_ms = median_ms(torch, grid_sample) if lib_err <= 1e-2 else None
-    nbytes = windows.numel() * 4 + mats.numel() * 4 + got.numel() * 4
-    bound_ms, bound_by = bound(nbytes, got.numel() * 12, PEAK_F32)
-    results["similarity_warp"] = dict(
-        max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-        bound_by=bound_by, library_ms=library_ms)
-    phase("K1", f"similarity_warp K={k} N={n} -> 112: max abs err "
-          f"{err:.3e} (atol 1e-2 on 0-255); kernel {ms:.3f} ms, plain "
-          f"{plain_ms:.3f} ms, bound {bound_ms:.3f} ms ({bound_by}); "
-          f"F.grid_sample max abs diff {lib_err:.3e}, "
-          f"{'%.3f ms' % library_ms if library_ms else 'not timed'} "
-          f"(median of 20, CUDA events; {card})")
-    del windows, got, want, grid, win_nchw
+    phase_k1(torch, F, kernels, K1, frames, card, results)
 
     # ---- 5-7. K3, K4, K5 vs plain at the stock line's shapes ------------
     stock_np = build_frames(STOCK_BATCH, SIZE, FACES_PER_FRAME)
@@ -861,24 +1057,24 @@ def main():
         torch, K6.mnet_stage1(stage1, few, sub, torch.float32),
         K6.mnet_stage1_plain(stage1, few, sub, torch.float32), 1e-4, 1e-4,
         "K6 f32")
-    ms = median_ms(torch, lambda: K6.mnet_stage1(stage1, prod, sub,
-                                                 torch.bfloat16))
-    plain_ms = median_ms(torch, lambda: K6.mnet_stage1_plain(
-        stage1, prod, sub, torch.bfloat16))
+    ms, call_ms, plain_ms = timed(
+        torch, "mnet_stage1",
+        lambda: K6.mnet_stage1(stage1, prod, sub, torch.bfloat16),
+        lambda: K6.mnet_stage1_plain(stage1, prod, sub, torch.bfloat16))
     # the function makes bf16 from u8: bounded at the bf16 peak
     bound_ms, bound_by = bound(prod.numel() + got.numel() * 2,
                                PROD_BATCH * mnet_stage1_flops(SIZE, SIZE),
                                PEAK_BF16)
-    results["mnet_stage1"] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                                  bound_ms=bound_ms, bound_by=bound_by,
-                                  library_ms=None)
+    results["mnet_stage1"] = dict(max_abs_err=err, ms=ms, call_ms=call_ms,
+                                  plain_ms=plain_ms, bound_ms=bound_ms,
+                                  bound_by=bound_by, library_ms=None)
     phase("K6", f"mnet_stage1 {PROD_BATCH}x{SIZE}x{SIZE} u8 -> "
           f"{tuple(got.shape)} bf16 vs plain f32: max abs err {err:.3e}, "
           f"rel L2 {rel_l2:.2e}, max/max|ref| {rel_max:.2e} (plain bf16 "
           f"rel L2 {plain16:.2e}); f32 kernel on 8 frames max "
-          f"abs err {err32:.3e} (rtol/atol 1e-4); kernel {ms:.3f} ms, plain "
-          f"{plain_ms:.3f} ms, bound {bound_ms:.3f} ms ({bound_by}, bf16 "
-          f"peak) (median of 20, CUDA events; {card})")
+          f"abs err {err32:.3e} (rtol/atol 1e-4); kernel {ms:.3f} ms, call "
+          f"{call_ms:.3f} ms, plain {plain_ms:.3f} ms, bound {bound_ms:.3f} "
+          f"ms ({bound_by}, bf16 peak) ({TIMING}; {card})")
     del got, want
 
     # ---- 16. K7 vs plain ------------------------------------------------
@@ -896,30 +1092,30 @@ def main():
         torch, K7.emotion_stem(conv1, bn1, faces[:64], torch.float32),
         K7.emotion_stem_plain(conv1, bn1, faces[:64], torch.float32), 1e-4,
         1e-4 * scale, "K7 f32")
-    ms = median_ms(torch, lambda: K7.emotion_stem(conv1, bn1, faces,
-                                                  torch.bfloat16))
-    plain_ms = median_ms(torch, lambda: K7.emotion_stem_plain(
-        conv1, bn1, faces, torch.bfloat16))
+    ms, call_ms, plain_ms = timed(
+        torch, "emotion_stem",
+        lambda: K7.emotion_stem(conv1, bn1, faces, torch.bfloat16),
+        lambda: K7.emotion_stem_plain(conv1, bn1, faces, torch.bfloat16))
     # the folded 4x4 conv, f32 faces in, bf16 out: bf16 peak
     bound_ms, bound_by = bound(faces.numel() * 4 + got.numel() * 2,
                                PROD_FACES * 112 * 112 * 64 * 48 * 2,
                                PEAK_BF16)
-    results["emotion_stem"] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                                   bound_ms=bound_ms, bound_by=bound_by,
-                                   library_ms=None)
+    results["emotion_stem"] = dict(max_abs_err=err, ms=ms, call_ms=call_ms,
+                                   plain_ms=plain_ms, bound_ms=bound_ms,
+                                   bound_by=bound_by, library_ms=None)
     phase("K7", f"emotion_stem K={PROD_FACES} 112 px f32 -> "
           f"{tuple(got.shape)} bf16 vs plain f32: max abs err {err:.3e}, "
           f"rel L2 {rel_l2:.2e}, max/max|ref| {rel_max:.2e} (plain bf16 "
           f"rel L2 {plain16:.2e}); f32 kernel on 64 faces max "
           f"abs err {err32:.3e} (rtol 1e-4, atol 1e-4 x max|ref|); kernel "
-          f"{ms:.3f} ms, plain {plain_ms:.3f} ms, bound {bound_ms:.3f} ms "
-          f"({bound_by}, folded 4x4 conv at the bf16 peak) (median of 20, "
-          f"CUDA events; {card})")
+          f"{ms:.3f} ms, call {call_ms:.3f} ms, plain {plain_ms:.3f} ms, "
+          f"bound {bound_ms:.3f} ms ({bound_by}, folded 4x4 conv at the bf16 "
+          f"peak) ({TIMING}; {card})")
     del faces, got, want
 
     # ---- 17. K8 vs plain -----------------------------------------------
     gen = torch.Generator(device=dev).manual_seed(3)
-    ms = plain_ms = bound_ms = err = 0.0
+    ms = call_ms = plain_ms = bound_ms = err = 0.0
     parts, bound_by = [], {}
     for layer, side, c, p in ((emo.layer1, 56, 256, 64),
                               (emo.layer2, 28, 512, 128)):
@@ -940,8 +1136,11 @@ def main():
         e32 = check_close(torch, K8.bottleneck_chain(blocks, x32), want32,
                           1e-4, 1e-4 * float(want32.abs().max()),
                           f"K8 f32 C={c}")
-        t_k = median_ms(torch, lambda: K8.bottleneck_chain(blocks, x))
-        t_p = median_ms(torch, lambda: K8.bottleneck_chain_plain(blocks, x))
+        t_k, t_call, t_p = timed(
+            torch, "bottleneck_chain",
+            lambda: K8.bottleneck_chain(blocks, x),
+            lambda: K8.bottleneck_chain_plain(blocks, x))
+        call_ms += t_call
         pix = PROD_FACES * side * side
         flops = len(blocks) * pix * 2 * (2 * c * p + 9 * p * p)
         wbytes = len(blocks) * 2 * (2 * c * p + 9 * p * p)
@@ -953,15 +1152,15 @@ def main():
                      f"f32: max abs err {e:.3e}, rel L2 {rel_l2:.2e}, "
                      f"max/max|ref| {rel_max:.2e} (plain bf16 rel L2 "
                      f"{plain16:.2e}), f32 kernel on 16 faces {e32:.3e}; kernel "
-                     f"{t_k:.3f} ms, plain {t_p:.3f} ms, bound {b_ms:.3f} ms "
-                     f"({b_by})")
+                     f"{t_k:.3f} ms, call {t_call:.3f} ms, plain {t_p:.3f} ms, "
+                     f"bound {b_ms:.3f} ms ({b_by})")
         del x, got, want, x32, want32
     results["bottleneck_chain"] = dict(
-        max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-        bound_by=bound_by[max(bound_by)], library_ms=None)
+        max_abs_err=err, ms=ms, call_ms=call_ms, plain_ms=plain_ms,
+        bound_ms=bound_ms, bound_by=bound_by[max(bound_by)], library_ms=None)
     phase("K8", f"bottleneck_chain K={PROD_FACES}, bf16: " + "; ".join(parts)
-          + f"; both chains {ms:.3f} ms, plain {plain_ms:.3f} ms, bound "
-          f"{bound_ms:.3f} ms (median of 20, CUDA events; {card})")
+          + f"; both chains {ms:.3f} ms (call {call_ms:.3f} ms), plain "
+          f"{plain_ms:.3f} ms, bound {bound_ms:.3f} ms ({TIMING}; {card})")
 
     # ---- 18. the production slice --------------------------------------
     engine = FusedRecognitionEngine(
@@ -1044,7 +1243,8 @@ def main():
             "name": kname, "route": "cuda", "source": src,
             "replaces": replaces, "launches": r["launches"],
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
-            "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+            "call_ms": r["call_ms"], "plain_ms": r["plain_ms"],
+            "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"]})
     phase("done", f"all phases passed in {time.perf_counter() - t_start:.1f}"
           " s after the card check")

@@ -272,8 +272,8 @@ def test_trunk_packed_weights_emulation(mtcnn_pair, name):
     """csrc/crop_net_trunk.cu emulated in numpy from the packed weights:
     conv1 band by band (each band's pool windows read only its conv rows),
     the ceil-mode pool clipped at the map's edge, then conv2. Matches the
-    plain trunk at 1e-4; the bf16 packing holds bf16-representable
-    values."""
+    plain trunk at 1e-4; the bf16 kernel's packing holds
+    bf16-representable values."""
     _, det = mtcnn_pair
     spec = _NETS[name][0]
     net = getattr(det, name)
@@ -314,7 +314,8 @@ def test_trunk_packed_weights_emulation(mtcnn_pair, name):
     want = K5.crop_net_trunk_plain(net, _t(x.astype(np.float32)), spec)
     np.testing.assert_allclose(np.stack(got), want.numpy(), rtol=1e-4,
                                atol=1e-4)
-    w16 = K5.pack_trunk_weights(net, spec, torch.bfloat16)
+    w16 = K5.pack_trunk_weights_mma(net, spec)[-(32 + 2 * c2) * 4:].view(
+        torch.float32)
     np.testing.assert_array_equal(
         w16.numpy(), w16.to(torch.bfloat16).to(torch.float32).numpy())
 

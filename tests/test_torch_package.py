@@ -109,7 +109,8 @@ def test_kernel_build_bookkeeping(tmp_path, monkeypatch):
         "bottleneck_chain", "nms_keep_mask", "crop_area_resize",
         "crop_net_trunk"}
     assert set(kernels.SIGNATURES) == {
-        "vn_similarity_warp", "vn_pnet_chain", "vn_mnet_stage1",
+        "vn_similarity_warp", "vn_similarity_warp_boxes", "vn_pnet_chain",
+        "vn_mnet_stage1",
         "vn_emotion_stem", "vn_bottleneck_block", "vn_nms_keep_mask",
         "vn_integral_image", "vn_crop_area_pool", "vn_crop_net_trunk"}
     kernels.count_launch("pnet_chain")

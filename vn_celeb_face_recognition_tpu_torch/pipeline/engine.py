@@ -9,9 +9,10 @@ Counterpart of ``vn_celeb_face_recognition_tpu/pipeline/engine.py``
      kernel K6);
   2. compaction keeps the top ``face_cap`` slots of the chunk by
      (validity, score);
-  3. each face gets a fixed window cut around its box, a Umeyama solve
+  3. each face gets a fixed window around its box, a Umeyama solve
      onto the canonical template, and a similarity warp to a
-     ``target_fs`` face (kernel K1);
+     ``target_fs`` face that samples the window straight from the frames
+     (kernel K1; no window stack is cut);
   4. standardisation, the embedding encoder and the MLP give
      log-probabilities, the class and its probability;
   5. optionally the emotion head: the 112 px faces resized to 224,
@@ -30,7 +31,7 @@ import torch
 
 from ..ops.image import fixed_image_standardization
 from ..ops.similarity import umeyama_similarity
-from ..ops.warp import similarity_warp
+from ..ops.warp import similarity_warp_frames
 from .align import center_point_dict
 
 
@@ -124,7 +125,8 @@ class FusedRecognitionEngine:
         dev = boxes.device
         flat_pts = points.reshape(b * k, 5, 2)
         flat_boxes = boxes.reshape(b * k, 4)
-        image_idx = torch.arange(b, device=dev).repeat_interleave(k)
+        image_idx = torch.arange(b, device=dev,
+                                 dtype=torch.int32).repeat_interleave(k)
         sel = overflow = None
         if face_cap is not None and face_cap < b * k:
             flat_valid = valid.reshape(b * k)
@@ -143,16 +145,13 @@ class FusedRecognitionEngine:
         cy = (flat_boxes[:, 1] + flat_boxes[:, 3]) * 0.5
         ox = torch.clamp(torch.round(cx - win / 2), 0, w - win)
         oy = torch.clamp(torch.round(cy - win / 2), 0, h - win)
-        oxi = torch.nan_to_num(ox).to(torch.int64)
-        oyi = torch.nan_to_num(oy).to(torch.int64)
-        ar = torch.arange(win, device=dev)
-        windows = frames[image_idx[:, None, None],
-                         oyi[:, None, None] + ar[None, :, None],
-                         oxi[:, None, None] + ar[None, None, :]]
-        windows = windows.to(torch.float32)
+        oxi = torch.nan_to_num(ox).to(torch.int32)
+        oyi = torch.nan_to_num(oy).to(torch.int32)
         local_pts = flat_pts - torch.stack([ox, oy], dim=-1)[:, None, :]
         mats = umeyama_similarity(local_pts, self.template)
-        faces = similarity_warp(windows, mats, self.target_fs)
+        # the warp samples each window straight from the uint8 frames
+        faces = similarity_warp_frames(frames, image_idx, oyi, oxi, win,
+                                       mats, self.target_fs)
 
         x = fixed_image_standardization(faces).to(self.compute_dtype)
         emb = self.encoder(x.permute(0, 3, 1, 2)).to(torch.float32)

@@ -37,8 +37,13 @@ _NP = ctypes.POINTER(ctypes.c_int)
 # Entry points that launch more than one kernel write how many they
 # launched to a trailing int*.
 SIGNATURES = {
-    # windows, mats, out, K, N, out_size, stream
-    "vn_similarity_warp": [_P, _P, _P, _I, _I, _I, _P],
+    # src, src_u8, image_idx, oy, ox, mats, out, K, n_img, H, W, win,
+    # out_size, stream
+    "vn_similarity_warp": [_P, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                           _I, _P],
+    # mats, src_u8, out boxes, K, win, out_size, stream (a check of K1's
+    # box rule, not a step of the warp)
+    "vn_similarity_warp_boxes": [_P, _I, _P, _I, _I, _I, _P],
     # levels, table, weights, probs, reg, n_levels, n_tiles, stream
     "vn_pnet_chain": [_P, _P, _P, _P, _P, _I, _I, _P],
     # frames, weights, out, scratch1, scratch2, B, H, W, out_bf16, stream,
