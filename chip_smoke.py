@@ -33,7 +33,8 @@ Phases, one line of output each (a failed phase exits non-zero):
       shapes (stock per-scale, cross-scale, ONet stage, RetinaFace, one
       set of 4,096, all-equal scores);
    6. K4 (crop_area_resize) bit-exact to the plain integral-image crops
-      on the stock chunk at S = 24 and 48;
+      on the stock chunk at S = 24 and 48, and on one 4032x3024 frame
+      whose int32 prefix sums wrap;
    7. K5 (crop_net_trunk) vs the nets' cuDNN modules at the stock line's
       crop counts (bf16 on the tensor cores, f32 on 1,024 crops), RNet
       and ONet timed apart with their TFLOP/s and GB/s;
@@ -44,11 +45,14 @@ Phases, one line of output each (a failed phase exits non-zero):
   11. the stock slice, counters held the same way;
   12. its profile;
   13. its card vs CPU in f32 on 2 frames;
-  14. the MTCNN host API (detect, __call__) on the card vs the CPU;
+  14. the MTCNN host API (detect, __call__) on the card vs the CPU, and
+      detect on the card on the 4032x3024 frame, which must find the faces
+      pasted into it;
   15. K6 (mnet_stage1) vs the stage's cuDNN modules, 128x640x640;
   16. K7 (emotion_stem) vs resize + normalise + cuDNN stem, 512 faces;
   17. K8 (bottleneck_chain) vs the blocks' cuDNN modules, layer1 and
-      layer2 tails at 512 faces;
+      layer2 tails at 512 faces and at 3 (a ragged last tile), with each
+      convolution's device time, TFLOP/s and GB/s;
   18. the production slice, counters held the same way;
   19. its profile;
   20. its card vs CPU in f32 on 2 frames.
@@ -70,6 +74,7 @@ Usage, from the root of a checkout: python3 chip_smoke.py
 import copy
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -104,12 +109,19 @@ KERNEL_GRIDS = {
     "similarity_warp": ("similarity_warp_kernel",),
     "mnet_stage1": ("segment_kernel",),
     "emotion_stem": ("emotion_stem_kernel",),
-    "bottleneck_chain": ("bottleneck_block_kernel",),
+    "bottleneck_chain": ("conv_gemm_bf16",),
     "nms_keep_mask": ("nms_keep_kernel",),
     "crop_area_resize": ("row_scan_kernel", "col_scan_kernel",
                          "crop_pool_kernel"),
     "crop_net_trunk": ("crop_net_trunk_mma",),
 }
+# K8's convolutions by the template arguments <BN, TAPS, RES> of its grid
+# in the profiler's (demangled or mangled) kernel name
+CONV_ARGS = re.compile(r"conv_gemm_bf16(?:<(\d+), (\d+), (true|false)>|"
+                       r"ILi(\d+)ELi(\d+)ELb([01])E)")
+# a 12 MP photo (4032x3024), above the 8,421,504 pixels whose int32 prefix
+# sums of 255 stay below 2**31
+BIG_H, BIG_W = 3024, 4032
 # launches per chunk run of an MTCNN line: K2 once, four NMS (K3), one
 # integral image (two grids) and two pools (K4), the RNet and ONet trunks
 # (K5), and one warp (K1)
@@ -365,6 +377,68 @@ def host_api_card_vs_cpu(torch, mtcnn_cls, frames_np, dev):
         fail("host API card vs CPU outside tolerance")
 
 
+def big_frame():
+    """One 4032x3024 photo: a bright background (pixels 250-255, so its
+    int32 prefix sums wrap) with four faces of 420-800 px pasted into it.
+    Returns (frame [H, W, 3] uint8, the pasted boxes [4, 4] x1 y1 x2 y2)."""
+    from vn_celeb_face_recognition_tpu_torch.utils.frames import (
+        face_files,
+        read_png,
+        resize_bicubic,
+    )
+
+    img = np.random.default_rng(12).integers(250, 256, (BIG_H, BIG_W, 3),
+                                              dtype=np.uint8)
+    files = face_files()
+    boxes = []
+    for i, (x, y, side) in enumerate(((300, 400, 600), (1800, 900, 420),
+                                      (3000, 300, 800), (2600, 2200, 500))):
+        img[y:y + side, x:x + side] = resize_bicubic(
+            read_png(files[(3 * i) % len(files)]), (side, side))
+        boxes.append((x, y, x + side, y + side))
+    return img, np.asarray(boxes, np.float64)
+
+
+def box_iou(a, b):
+    """IoU of boxes a [A, 4] and b [B, 4] (x1 y1 x2 y2) -> [A, B]."""
+    a, b = np.asarray(a, np.float64)[:, None], np.asarray(b, np.float64)[None]
+    iw = np.clip(np.minimum(a[..., 2], b[..., 2])
+                 - np.maximum(a[..., 0], b[..., 0]), 0, None)
+    ih = np.clip(np.minimum(a[..., 3], b[..., 3])
+                 - np.maximum(a[..., 1], b[..., 1]), 0, None)
+    inter = iw * ih
+    area = ((a[..., 2] - a[..., 0]) * (a[..., 3] - a[..., 1])
+            + (b[..., 2] - b[..., 0]) * (b[..., 3] - b[..., 1]))
+    return inter / (area - inter)
+
+
+def big_frame_detect(torch, kernels, mtcnn_cls, big_np, pasted, dev):
+    """MTCNN.detect (default constructor, auto caps) on the card on the
+    4032x3024 frame: every pasted face found (IoU >= 0.5), through K2, K3,
+    K4 and K5."""
+    det = mtcnn_cls(device=dev)
+    det.detect(big_np)  # warm-up
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    boxes, probs = det.detect(big_np)
+    secs = time.perf_counter() - t0
+    counts = kernels.launch_counts()
+    want = {k: n for k, n in MTCNN_LINE_LAUNCHES.items()
+            if k != "similarity_warp"}
+    if {k: n for k, n in counts.items() if n} != want:
+        fail(f"big-frame detect launches {counts}, want {want}")
+    best = (box_iou(pasted, boxes).max(1) if len(boxes)
+            else np.zeros(len(pasted)))
+    phase("big-frame", f"MTCNN.detect on one {BIG_W}x{BIG_H} u8 frame on "
+          f"the card (caps {det.capacity_profile(BIG_H, BIG_W)}): "
+          f"{len(boxes)} faces, best IoU with each of the {len(pasted)} "
+          f"pasted faces {np.round(best, 3).tolist()} (>= 0.5); launches "
+          f"{counts}; {secs:.3f} s (host clock)")
+    if (best < 0.5).any():
+        fail("MTCNN.detect on the 4032x3024 frame missed a pasted face")
+
+
 def drive(torch, kernels, engine, chunks, n, names):
     """``n`` timed chunks of process_adaptive + identify, counters reset
     just before; returns (chunk seconds, valid counts, launch counts,
@@ -506,11 +580,12 @@ def phase_k3(torch, kernels, K3, dev, card, results):
           f"({TIMING}; {card})")
 
 
-def phase_k4(torch, kernels, K4, frames, card, results):
+def phase_k4(torch, kernels, K4, frames, big, pasted, card, results):
     """K4 bit-exact (torch.equal) to the plain version on the stock chunk:
     K = 256 at S = 24 and K = 128 at S = 48, with full-frame, partly
     off-frame and inverted boxes; timed as the cascade runs it (one
-    integral image, two pools)."""
+    integral image, two pools). Then bit-exact on the 4032x3024 frame
+    ``big`` [1, H, W, 3], whose int32 prefix sums wrap."""
     gen = np.random.default_rng(11)
     b, h, w = frames.shape[:3]
     dev = frames.device
@@ -542,6 +617,29 @@ def phase_k4(torch, kernels, K4, frames, card, results):
         nbytes += got.numel() * 4 + bx.numel() * 4
     del integ_plain
 
+    # the 12 MP frame: its prefix sums wrap modulo 2**32
+    integ_big = through_kernel(kernels, "crop_area_resize",
+                               lambda: K4.integral_image(big), launches=2)
+    if not torch.equal(integ_big, K4.integral_image_plain(big)):
+        fail("K4 integral image of the 4032x3024 frame differs from the "
+             "plain version")
+    if int(integ_big.min()) >= 0:
+        fail("the 4032x3024 frame's int32 prefix sums did not wrap")
+    xy = gen.uniform(-100, BIG_W, (1, 60, 2))
+    side = gen.uniform(10, 2500, (1, 60, 1))
+    bx = np.trunc(np.concatenate([xy, xy + side], -1))
+    bx[0, :4] = pasted + [1, 1, 0, 0]                  # the pasted faces
+    bx[0, 4] = [1, 1, BIG_W, BIG_H]                    # the whole frame
+    bx[0, 5] = [BIG_W - 300, BIG_H - 200, BIG_W + 50, BIG_H + 9]
+    bx = torch.from_numpy(bx.astype(np.float32)).to(dev)
+    for s in (24, 48):
+        got = through_kernel(kernels, "crop_area_resize",
+                             lambda: K4.crop_area_pool(integ_big, bx, s))
+        if not torch.equal(got, K4.grouped_crop_area_resize_plain(big, bx,
+                                                                  s)):
+            fail(f"K4 S={s} on the 4032x3024 frame: not bit-exact")
+    del integ_big
+
     def cascade_crops():  # one integral image, both pools
         shared = K4.integral_image(frames)
         return [K4.crop_area_pool(shared, bx, s) for s, bx in stages]
@@ -559,7 +657,9 @@ def phase_k4(torch, kernels, K4, frames, card, results):
                                        library_ms=None)
     phase("K4", f"crop_area_resize {b}x{h}x{w} u8, K=256 S=24 and K=128 "
           "S=48 (full-frame, off-frame, inverted boxes): bit-exact "
-          f"(torch.equal); integral image + both pools {ms:.3f} ms (the "
+          f"(torch.equal); one {BIG_W}x{BIG_H} frame (prefix sums wrap), "
+          "K=60 at S=24 and 48: bit-exact (torch.equal); integral image + "
+          f"both pools {ms:.3f} ms (the "
           f"integral image {ms_integ:.3f} ms), call {call_ms:.3f} ms, plain "
           f"(integral image per stage) {plain_ms:.3f} ms, bound "
           f"{bound_ms:.3f} ms ({bound_by}: frames in, crops out); library "
@@ -836,6 +936,120 @@ def phase_k1(torch, F, kernels, K1, frames, card, results):
           f"{old_ms:.4f} ms ({card})")
 
 
+def conv_device_ms(torch, fn, runs=20):
+    """Device ms per call of fn() in K8's grids, by convolution of the
+    block (conv1, conv2, conv3, summed over the chain's blocks), read from
+    the template arguments in the profiler's kernel names."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(runs):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.key_averages():
+        if e.device_type != DeviceType.CUDA or "conv_gemm_bf16" not in e.key:
+            continue
+        args = CONV_ARGS.search(e.key)
+        if args is None:
+            fail(f"K8: no template arguments in the kernel name {e.key!r}")
+        taps = args.group(2) or args.group(5)
+        res = (args.group(3) or args.group(6)) in ("true", "1")
+        role = "conv2" if taps == "9" else "conv3" if res else "conv1"
+        out[role] = out.get(role, 0.0) + e.self_device_time_total / runs / 1e3
+    if sorted(out) != ["conv1", "conv2", "conv3"]:
+        fail(f"K8: profiled convolutions {sorted(out)}")
+    return out
+
+
+def conv_work(m, c, p):
+    """(FLOPs, bytes) of conv1, conv2 and conv3 of one block over m pixels:
+    each launch's inputs read once and its output written once (bf16)."""
+    return {"conv1": (2 * m * c * p, 2 * (m * c + m * p + c * p)),
+            "conv2": (2 * m * 9 * p * p, 2 * (2 * m * p + 9 * p * p)),
+            "conv3": (2 * m * p * c, 2 * (m * p + 2 * m * c + p * c))}
+
+
+def phase_k8(torch, kernels, K8, emo, card, results):
+    """K8 on the emotion net's layer1 and layer2 tails at 512 faces and at
+    3 (the last 128-pixel tile ragged), bf16 held to the plain version in
+    f32, f32 on 16 faces at 1e-4; each convolution timed apart."""
+    dev = next(emo.parameters()).device
+    gen = torch.Generator(device=dev).manual_seed(3)
+    ms = call_ms = plain_ms = bound_ms = err = 0.0
+    parts, bound_by = [], {}
+    for name, layer, side, c, p in (("l1", emo.layer1, 56, 256, 64),
+                                    ("l2", emo.layer2, 28, 512, 128)):
+        blocks = list(layer)[1:]
+        x = torch.relu(torch.randn((PROD_FACES, side, side, c),
+                                   generator=gen, device=dev)).to(
+                                       torch.bfloat16)
+        # three launches (conv1, conv2, conv3) per block
+        launches = 3 * len(blocks)
+        got = through_kernel(kernels, "bottleneck_chain",
+                             lambda: K8.bottleneck_chain(blocks, x),
+                             launches=launches)
+        want = K8.bottleneck_chain_plain(blocks, x.to(torch.float32))
+        e, rel_l2, rel_max, plain16 = check_bf16(
+            torch, got, want, K8.bottleneck_chain_plain(blocks, x),
+            f"K8 bf16 {name}")
+        del got, want
+        few = x[:3]  # 3 x side x side pixels: the last tile is ragged
+        got3 = through_kernel(kernels, "bottleneck_chain",
+                              lambda: K8.bottleneck_chain(blocks, few),
+                              launches=launches)
+        _, rel3, rel_max3, _ = check_bf16(
+            torch, got3, K8.bottleneck_chain_plain(blocks,
+                                                   few.to(torch.float32)),
+            K8.bottleneck_chain_plain(blocks, few), f"K8 bf16 {name} 3 faces")
+        x32 = x[:16].to(torch.float32)
+        want32 = K8.bottleneck_chain_plain(blocks, x32)
+        e32 = check_close(torch, K8.bottleneck_chain(blocks, x32), want32,
+                          1e-4, 1e-4 * float(want32.abs().max()),
+                          f"K8 f32 {name}")
+        t_k, t_call, t_p = timed(
+            torch, "bottleneck_chain",
+            lambda: K8.bottleneck_chain(blocks, x),
+            lambda: K8.bottleneck_chain_plain(blocks, x))
+        per_conv = conv_device_ms(torch,
+                                  lambda: K8.bottleneck_chain(blocks, x))
+        call_ms += t_call
+        pix = PROD_FACES * side * side
+        convs = []
+        for role, (flops, nbytes) in conv_work(pix, c, p).items():
+            t = per_conv[role]
+            floor_ms, floor_by = bound(nbytes, flops, PEAK_BF16)
+            convs.append(
+                f"{role} {t:.3f} ms = {len(blocks) * flops / t / 1e9:.1f} "
+                f"TFLOP/s, {len(blocks) * nbytes / t / 1e6:.0f} GB/s (own "
+                f"floor {len(blocks) * floor_ms:.3f} ms, {floor_by})")
+        flops = len(blocks) * pix * 2 * (2 * c * p + 9 * p * p)
+        wbytes = len(blocks) * 2 * (2 * c * p + 9 * p * p)
+        b_ms, b_by = bound(2 * pix * c * 2 + wbytes, flops, PEAK_BF16)
+        ms, plain_ms, bound_ms, err = (ms + t_k, plain_ms + t_p,
+                                       bound_ms + b_ms, max(err, e))
+        bound_by[b_ms] = b_by
+        parts.append(
+            f"{name} C={c} {side}x{side} {len(blocks)} blocks vs plain f32: "
+            f"max abs err {e:.3e}, rel L2 {rel_l2:.2e}, max/max|ref| "
+            f"{rel_max:.2e} (plain bf16 rel L2 {plain16:.2e}); 3 faces rel L2 "
+            f"{rel3:.2e}, max/max|ref| {rel_max3:.2e}; f32 kernel on 16 faces "
+            f"{e32:.3e}; kernel {t_k:.3f} ms ({', '.join(convs)}), call "
+            f"{t_call:.3f} ms, plain (cuDNN) {t_p:.3f} ms, bound {b_ms:.3f} "
+            f"ms ({b_by}); kernel {'<' if t_k < t_p else '>='} plain")
+        del x, few, got3, x32, want32
+    results["bottleneck_chain"] = dict(
+        max_abs_err=err, ms=ms, call_ms=call_ms, plain_ms=plain_ms,
+        bound_ms=bound_ms, bound_by=bound_by[max(bound_by)], library_ms=None)
+    phase("K8", f"bottleneck_chain K={PROD_FACES}, bf16, 3 launches a "
+          "block: " + "; ".join(parts) + f"; both chains {ms:.3f} ms (call "
+          f"{call_ms:.3f} ms), plain {plain_ms:.3f} ms, bound {bound_ms:.3f} "
+          f"ms ({TIMING}; {card})")
+
+
 def main():
     if not os.path.isdir(os.path.join(HERE, PKG)):
         fail(f"no {PKG} package beside {os.path.basename(__file__)}; run "
@@ -941,7 +1155,10 @@ def main():
     stock_np = build_frames(STOCK_BATCH, SIZE, FACES_PER_FRAME)
     stock = torch.from_numpy(stock_np).to(dev)
     phase_k3(torch, kernels, K3, dev, card, results)
-    phase_k4(torch, kernels, K4, stock, card, results)
+    big_np, pasted = big_frame()
+    big = torch.from_numpy(big_np[None]).to(dev)
+    phase_k4(torch, kernels, K4, stock, big, pasted, card, results)
+    del big
     phase_k5(torch, kernels, K5, det, card, results)
 
     # ---- 8. the default slice ------------------------------------------
@@ -1022,7 +1239,8 @@ def main():
 
     # ---- 14. the MTCNN host API, card vs CPU ---------------------------
     host_api_card_vs_cpu(torch, MTCNN, stock_np, dev)
-    del stock
+    big_frame_detect(torch, kernels, MTCNN, big_np, pasted, dev)
+    del stock, big_np
     torch.cuda.empty_cache()
 
     # ---- production models ---------------------------------------------
@@ -1114,53 +1332,7 @@ def main():
     del faces, got, want
 
     # ---- 17. K8 vs plain -----------------------------------------------
-    gen = torch.Generator(device=dev).manual_seed(3)
-    ms = call_ms = plain_ms = bound_ms = err = 0.0
-    parts, bound_by = [], {}
-    for layer, side, c, p in ((emo.layer1, 56, 256, 64),
-                              (emo.layer2, 28, 512, 128)):
-        blocks = list(layer)[1:]
-        x = torch.relu(torch.randn((PROD_FACES, side, side, c),
-                                   generator=gen, device=dev)).to(
-                                       torch.bfloat16)
-        # one launch per block
-        got = through_kernel(kernels, "bottleneck_chain",
-                             lambda: K8.bottleneck_chain(blocks, x),
-                             launches=len(blocks))
-        want = K8.bottleneck_chain_plain(blocks, x.to(torch.float32))
-        e, rel_l2, rel_max, plain16 = check_bf16(
-            torch, got, want, K8.bottleneck_chain_plain(blocks, x),
-            f"K8 bf16 C={c}")
-        x32 = x[:16].to(torch.float32)
-        want32 = K8.bottleneck_chain_plain(blocks, x32)
-        e32 = check_close(torch, K8.bottleneck_chain(blocks, x32), want32,
-                          1e-4, 1e-4 * float(want32.abs().max()),
-                          f"K8 f32 C={c}")
-        t_k, t_call, t_p = timed(
-            torch, "bottleneck_chain",
-            lambda: K8.bottleneck_chain(blocks, x),
-            lambda: K8.bottleneck_chain_plain(blocks, x))
-        call_ms += t_call
-        pix = PROD_FACES * side * side
-        flops = len(blocks) * pix * 2 * (2 * c * p + 9 * p * p)
-        wbytes = len(blocks) * 2 * (2 * c * p + 9 * p * p)
-        b_ms, b_by = bound(2 * pix * c * 2 + wbytes, flops, PEAK_BF16)
-        ms, plain_ms, bound_ms, err = (ms + t_k, plain_ms + t_p,
-                                       bound_ms + b_ms, max(err, e))
-        bound_by[b_ms] = b_by
-        parts.append(f"C={c} {side}x{side} {len(blocks)} blocks vs plain "
-                     f"f32: max abs err {e:.3e}, rel L2 {rel_l2:.2e}, "
-                     f"max/max|ref| {rel_max:.2e} (plain bf16 rel L2 "
-                     f"{plain16:.2e}), f32 kernel on 16 faces {e32:.3e}; kernel "
-                     f"{t_k:.3f} ms, call {t_call:.3f} ms, plain {t_p:.3f} ms, "
-                     f"bound {b_ms:.3f} ms ({b_by})")
-        del x, got, want, x32, want32
-    results["bottleneck_chain"] = dict(
-        max_abs_err=err, ms=ms, call_ms=call_ms, plain_ms=plain_ms,
-        bound_ms=bound_ms, bound_by=bound_by[max(bound_by)], library_ms=None)
-    phase("K8", f"bottleneck_chain K={PROD_FACES}, bf16: " + "; ".join(parts)
-          + f"; both chains {ms:.3f} ms (call {call_ms:.3f} ms), plain "
-          f"{plain_ms:.3f} ms, bound {bound_ms:.3f} ms ({TIMING}; {card})")
+    phase_k8(torch, kernels, K8, emo, card, results)
 
     # ---- 18. the production slice --------------------------------------
     engine = FusedRecognitionEngine(
@@ -1174,11 +1346,12 @@ def main():
     times, valid_counts, counts, runs, out, res = drive(
         torch, kernels, engine, chunks, PROD_CHUNKS, names)
     # per chunk run: K6's three segments, one NMS (K3), one K1 and one K7
-    # launch, and one K8 launch per block of layer1's and layer2's tails
+    # launch, and three K8 launches per block of layer1's and layer2's
+    # tails (15)
     tail_blocks = len(emo.layer1) - 1 + len(emo.layer2) - 1
     check_line_counts(counts, {"mnet_stage1": 3, "nms_keep_mask": 1,
                                "similarity_warp": 1, "emotion_stem": 1,
-                               "bottleneck_chain": tail_blocks}, runs,
+                               "bottleneck_chain": 3 * tail_blocks}, runs,
                       "production", results)
     if any(len(r) != 4 for r in res):
         fail("identify did not return (names, boxes, emotion_idx, "

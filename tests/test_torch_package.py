@@ -101,7 +101,7 @@ def test_kernel_build_bookkeeping(tmp_path, monkeypatch):
     assert {os.path.basename(s) for s in kernels._sources()} >= {
         "pyramid_pnet.cu", "similarity_warp.cu", "mnet_stage1.cu",
         "emotion_stem.cu", "bottleneck_chain.cu", "nms_keep.cu",
-        "crop_area_pool.cu", "crop_net_trunk.cu", "launch.cuh"}
+        "crop_area_pool.cu", "crop_net_trunk.cu", "launch.cuh", "mma.cuh"}
     digest = kernels.sources_hash()
     assert digest == kernels.sources_hash() and len(digest) == 64
     assert set(kernels.launch_counts()) == {

@@ -17,10 +17,15 @@
 // takes output cells and sums four int32 corners. The cell bounds are
 // computed outside the kernel in f32, as the reference computes them, and
 // arrive as int32 tables (clamped to the frame) plus each cell's f32
-// extent along each axis. Sums are exact in int32; the division by the
-// UNclamped cell area wy * wx (at least 1) is one IEEE f32 division, so
-// the result is bit-exact. Empty or inverted cells (off-frame boxes) sum
-// to zero. The TPU kernel's 0/1-mask GEMMs are not carried over.
+// extent along each axis. The scans accumulate in uint32, so the prefix
+// sums wrap modulo 2^32 on frames of more than 8,421,504 pixels (unsigned
+// overflow is defined); the corner difference is taken in uint32 too and
+// read back as int32, which is the cell's true sum whenever that fits in
+// int32 (a cell of at most 8,421,504 pixels: a 24-cell pool of a whole
+// 4032x3024 frame sums at most ~5.4 M). The division by the UNclamped
+// cell area wy * wx (at least 1) is one IEEE f32 division, so the result
+// is bit-exact. Empty or inverted cells (off-frame boxes) sum to zero.
+// The TPU kernel's 0/1-mask GEMMs are not carried over.
 //
 // Bound on the H100: bytes. Per chunk of 128 640x640 frames the function
 // reads 157 MB of frames and writes 226 MB of 24 px crops (K = 256) and
@@ -44,15 +49,16 @@ row_scan_kernel(const uint8_t* __restrict__ frames,
   const int y = blockIdx.x, b = blockIdx.y;
   const int c = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const uint8_t* src = frames + ((size_t)b * h + y) * w * kCh + c;
-  int32_t* dst = integ + (((size_t)b * (h + 1) + y + 1) * (w + 1)) * kCh + c;
+  uint32_t* dst = reinterpret_cast<uint32_t*>(integ) +
+                  (((size_t)b * (h + 1) + y + 1) * (w + 1)) * kCh + c;
   if (lane == 0) dst[0] = 0;
-  int carry = 0;
+  uint32_t carry = 0;
   for (int x0 = 0; x0 < w; x0 += 32) {
     const int x = x0 + lane;
-    int v = x < w ? (int)src[(size_t)x * kCh] : 0;
+    uint32_t v = x < w ? (uint32_t)src[(size_t)x * kCh] : 0u;
 #pragma unroll
     for (int off = 1; off < 32; off <<= 1) {
-      const int n = __shfl_up_sync(0xffffffffu, v, off);
+      const uint32_t n = __shfl_up_sync(0xffffffffu, v, off);
       if (lane >= off) v += n;
     }
     v += carry;
@@ -68,9 +74,10 @@ col_scan_kernel(int32_t* __restrict__ integ, int h, int w) {
   const int e = blockIdx.x * blockDim.x + threadIdx.x;
   const int row = (w + 1) * kCh;
   if (e >= row) return;
-  int32_t* p = integ + (size_t)blockIdx.y * (h + 1) * row + e;
+  uint32_t* p = reinterpret_cast<uint32_t*>(integ) +
+                (size_t)blockIdx.y * (h + 1) * row + e;
   p[0] = 0;
-  int acc = 0;
+  uint32_t acc = 0;
   for (int y = 1; y <= h; ++y) {
     acc += p[(size_t)y * row];
     p[(size_t)y * row] = acc;
@@ -89,7 +96,8 @@ crop_pool_kernel(const int32_t* __restrict__ integ,
   const int bk = blockIdx.x;
   const int b = bk / k;
   const int row = (w + 1) * kCh;
-  const int32_t* im = integ + (size_t)b * (h + 1) * row;
+  const uint32_t* im =
+      reinterpret_cast<const uint32_t*>(integ) + (size_t)b * (h + 1) * row;
   const size_t t0 = (size_t)bk * s;
   float* dst = out + (size_t)bk * s * s * kCh;
   for (int o = threadIdx.x; o < s * s * kCh; o += blockDim.x) {
@@ -98,10 +106,12 @@ crop_pool_kernel(const int32_t* __restrict__ integ,
     const int oy = cell / s, ox = cell % s;
     const int ya = __ldg(ty0 + t0 + oy), yb = __ldg(ty1 + t0 + oy);
     const int xa = __ldg(tx0 + t0 + ox), xb = __ldg(tx1 + t0 + ox);
-    const int sum = im[(size_t)yb * row + xb * kCh + c] -
-                    im[(size_t)ya * row + xb * kCh + c] -
-                    im[(size_t)yb * row + xa * kCh + c] +
-                    im[(size_t)ya * row + xa * kCh + c];
+    // modulo 2^32, then read as int32 (nvcc converts modulo 2^32)
+    const uint32_t wrapped = im[(size_t)yb * row + xb * kCh + c] -
+                             im[(size_t)ya * row + xb * kCh + c] -
+                             im[(size_t)yb * row + xa * kCh + c] +
+                             im[(size_t)ya * row + xa * kCh + c];
+    const int sum = (int)wrapped;
     const float norm =
         fmaxf(__fmul_rn(__ldg(wy + t0 + oy), __ldg(wx + t0 + ox)), 1.f);
     dst[o] = __fdiv_rn(__int2float_rn(sum), norm);
@@ -111,7 +121,7 @@ crop_pool_kernel(const int32_t* __restrict__ integ,
 }  // namespace
 
 // frames [b, h, w, 3] u8 -> integ [b, h+1, w+1, 3] int32 zero-padded
-// prefix sums. Two launches on `stream` (written to *launches), no
+// prefix sums, modulo 2^32. Two launches on `stream` (written to *launches), no
 // synchronisation; returns cudaGetLastError().
 extern "C" int vn_integral_image(const uint8_t* frames, int32_t* integ,
                                  int b, int h, int w, void* stream,

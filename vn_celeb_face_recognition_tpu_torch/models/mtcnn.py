@@ -32,6 +32,7 @@ from torch import nn
 from ..ops import boxes as B
 from ..ops.crop import crop_area_pool, integral_image
 from ..ops.crops_net import ONET_SPEC, RNET_SPEC, crop_net_trunk
+from ..ops.nms import check_set_caps
 from ..ops.pyramid_pnet import normalize, pyramid_pnet
 from ..utils.device import select_device
 from ..utils.frames import resize_bilinear, write_png
@@ -243,6 +244,11 @@ class MTCNN:
         self.out_cap = out_cap
         self.dtype = dtype
         self.device = select_device(device)
+        # every cap but out_cap sizes an NMS set
+        check_set_caps(self.device.type,
+                       pnet_cap_per_scale=pnet_cap_per_scale,
+                       cross_cap=cross_cap, rnet_cap=rnet_cap,
+                       onet_cap=onet_cap)
         self.pnet = load_npz(PNet(), os.path.join(WEIGHTS_DIR, "pnet.npz"))
         self.rnet = load_npz(RNet(), os.path.join(WEIGHTS_DIR, "rnet.npz"))
         self.onet = load_npz(ONet(), os.path.join(WEIGHTS_DIR, "onet.npz"))

@@ -22,6 +22,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops import boxes as B
+from ..ops.nms import check_set_caps
 from ..ops.planar_s1 import STAGE1_SPECS, mnet_stage1
 from ..utils.device import select_device
 from .layers import batch_norm, conv, load_npz
@@ -224,6 +225,7 @@ class RetinaFace:
         self.nms_cap = min(nms_cap, topk_bf_nms)
         self.out_cap = 16  # the engine's per-frame face capacity
         self.device = select_device(device)
+        check_set_caps(self.device.type, nms_cap=self.nms_cap)
         self.net = RetinaFaceNet(dtype)
         if weights_path:
             load_npz(self.net, weights_path)

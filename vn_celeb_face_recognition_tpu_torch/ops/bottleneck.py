@@ -7,14 +7,15 @@ conv1x1 -> BN -> ReLU -> conv3x3 -> BN -> ReLU -> conv1x1 -> BN ->
 The emotion net runs it on layer1's blocks 1-2 (56x56, C = 256, P = 64)
 and layer2's blocks 1-3 (28x28, C = 512, P = 128).
 
-The CUDA kernel ``csrc/bottleneck_chain.cu`` runs one whole block per
-launch, fused: a thread block owns a band of one image's rows and keeps
-conv1's output (with a one-row halo) and conv2's output in shared
-memory, on the tensor cores in bf16 with f32 accumulation. ``bottleneck_chain``
-launches it once per block of the chain, ping-ponging two device
-buffers. f32 inputs (the card-vs-CPU check) take the kernel file's
-plain f32 path, three unfused launches per block on the CUDA cores.
-Every launch is counted: a bf16 chain of n blocks counts n.
+The CUDA kernel ``csrc/bottleneck_chain.cu`` runs each block as three
+launches of one implicit-GEMM template on the tensor cores (bf16, f32
+sums): conv1 (x -> t1), conv2 (9 taps of t1 -> t2) and conv3 (t2 -> y,
+plus the residual x), with t1 and t2 in device memory, scratch in the
+activation dtype that ``bottleneck_chain`` allocates once per chain. The
+bf16 weights are packed [tap][out][in] (``pack_gemm_weights``). f32 inputs (the
+card-vs-CPU check) take the kernel file's plain f32 path, also three
+launches per block, on the CUDA cores. Every launch is counted: a chain
+of n blocks counts 3n.
 
 ``bottleneck_chain`` takes the plain PyTorch version (the blocks' own
 NCHW modules) for CPU tensors only and launches the kernel for CUDA
@@ -26,9 +27,6 @@ import ctypes
 import torch
 
 from ..utils import kernels
-
-# (C, P, widest W) the fused bf16 kernel is instantiated for
-FUSED_SHAPES = {(256, 64): 64, (512, 128): 32}
 
 
 def _bn_scale_shift(bn):
@@ -54,6 +52,17 @@ def fold_block(block, dtype):
             w3.to(dtype).contiguous(), h3.to(torch.float32).contiguous())
 
 
+@torch.no_grad()
+def pack_gemm_weights(folded):
+    """``fold_block``'s weights -> the bf16 kernel's B operands, packed
+    [tap][out][in] with the input channels contiguous: (w1 [1, P, C], b1,
+    w2 [9, P, P], b2, w3 [1, C, P], b3); the biases stay f32."""
+    w1, b1, w2, b2, w3, b3 = folded
+    return (w1.t().unsqueeze(0).contiguous(), b1,
+            w2.transpose(1, 2).contiguous(), b2,
+            w3.t().unsqueeze(0).contiguous(), b3)
+
+
 def _check(blocks, x):
     if x.dim() != 4:
         raise ValueError(f"x must be [N, H, W, C], got {tuple(x.shape)}")
@@ -76,8 +85,8 @@ def bottleneck_chain_plain(blocks, x):
 
 @torch.no_grad()
 def bottleneck_chain_kernel(blocks, x):
-    """The same chain through the CUDA kernel (CUDA tensors only): one
-    launch per block in bf16, three in f32."""
+    """The same chain through the CUDA kernel (CUDA tensors only): three
+    launches per block, in bf16 and in f32."""
     _check(blocks, x)
     if x.dtype not in (torch.float32, torch.bfloat16):
         raise ValueError(f"unsupported dtype {x.dtype}")
@@ -86,18 +95,17 @@ def bottleneck_chain_kernel(blocks, x):
     n, h, w, c = x.shape
     p = blocks[0].conv1.out_channels if blocks else c // 4
     bf16 = x.dtype == torch.bfloat16
-    if bf16 and FUSED_SHAPES.get((c, p), 0) < w:
-        raise ValueError(f"no fused bf16 kernel for C={c}, P={p}, W={w}; "
-                         f"instantiated: {FUSED_SHAPES}")
+    if bf16 and (p % 64 or c % 128):
+        raise ValueError(f"the bf16 kernel takes P a multiple of 64 and C of "
+                         f"128, got C={c}, P={p}")
     dev = x.device
     if not blocks or n == 0:
         return x.clone()
     bufs = [torch.empty_like(x), torch.empty_like(x)]
-    # the f32 path stages conv1's and conv2's outputs in device memory
-    t1 = t2 = torch.empty(0, device=dev)
-    if not bf16:
-        t1 = torch.empty((n, h, w, p), dtype=x.dtype, device=dev)
-        t2 = torch.empty_like(t1)
+    # conv1's and conv2's outputs, in device memory
+    t1 = torch.empty((n, h, w, p), dtype=x.dtype, device=dev)
+    t2 = torch.empty_like(t1)
+    pack = pack_gemm_weights if bf16 else (lambda folded: folded)
     lib = kernels.library()
     stream = torch.cuda.current_stream(dev).cuda_stream
     launched = ctypes.c_int(0)
@@ -105,8 +113,8 @@ def bottleneck_chain_kernel(blocks, x):
     for i, blk in enumerate(blocks):
         w1, b1, w2, b2, w3, b3 = kernels.cached_fold(
             blk, ("bottleneck", str(dev), x.dtype),
-            lambda blk=blk: tuple(t.to(dev) for t in fold_block(blk,
-                                                                x.dtype)))
+            lambda blk=blk: tuple(t.to(dev) for t in pack(
+                fold_block(blk, x.dtype))))
         dst = bufs[i % 2]
         err = lib.vn_bottleneck_block(
             src.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(),

@@ -12,6 +12,13 @@ output cell. ``integral_image`` builds it (two launches of
 tensors); the cascade builds it once per chunk and hands it to both crop
 stages. ``grouped_crop_area_resize`` computes the cell bounds here in f32,
 as the reference does, and pools (one launch for CUDA tensors).
+
+Frames of any size are taken. The prefix sums wrap modulo 2**32 (a
+frame of more than 8,421,504 pixels overflows int32), and the four-corner
+difference is taken modulo 2**32 as well, so it equals the cell's true
+sum whenever that sum fits in int32: a cell of at most 8,421,504 pixels
+of 255. A 24-cell pool of a whole 4032x3024 frame sums at most
+168 x 126 x 255, about 5.4 M, per cell.
 """
 
 import ctypes
@@ -20,8 +27,11 @@ import torch
 
 from ..utils import kernels
 
-# int32 sums of 255-valued pixels stay exact up to this many pixels
-MAX_PIXELS = (2 ** 31 - 1) // 255
+
+def wrap_int32(t):
+    """int64 -> int32 modulo 2**32 (two's complement), without relying on
+    how a cast treats values out of range."""
+    return (torch.remainder(t + 2 ** 31, 2 ** 32) - 2 ** 31).to(torch.int32)
 
 
 def _area_pool_bounds(lo, hi, size):
@@ -59,9 +69,6 @@ def _check_frames(images):
     if images.dim() != 4 or images.shape[-1] != 3:
         raise ValueError(f"images must be [B, H, W, 3], got "
                          f"{tuple(images.shape)}")
-    if images.shape[1] * images.shape[2] > MAX_PIXELS:
-        raise ValueError(f"frames of more than {MAX_PIXELS} pixels overflow "
-                         "the int32 integral image")
 
 
 # ---------------------------------------------------------------------------
@@ -71,11 +78,11 @@ def _check_frames(images):
 
 def integral_image_plain(images):
     """Zero-padded 2-D prefix sums [B, H, W, 3] -> [B, H+1, W+1, 3] int32
-    of uint8-valued pixels."""
+    of uint8-valued pixels, wrapped modulo 2**32 (summed in int64, then
+    wrapped), as the kernel's uint32 scans leave them."""
     _check_frames(images)
-    px = torch.round(images.to(torch.float32)).to(torch.int32)
-    s = torch.cumsum(torch.cumsum(px, dim=1, dtype=torch.int32), dim=2,
-                     dtype=torch.int32)
+    px = torch.round(images.to(torch.float32)).to(torch.int64)
+    s = wrap_int32(torch.cumsum(torch.cumsum(px, dim=1), dim=2))
     return torch.nn.functional.pad(s, (0, 0, 1, 0, 1, 0))
 
 
@@ -131,8 +138,9 @@ def _check_boxes(integ, boxes):
 def crop_area_pool_plain(integ, boxes, size):
     """Integral image [B, H+1, W+1, 3] int32 + boxes [B, K, 4] (1-based
     inclusive integer-valued floats, ``clamp_boxes`` output) ->
-    [B, K, S, S, 3] f32: four corner reads per cell, then the f32
-    division by the unclamped cell area the reference performs."""
+    [B, K, S, S, 3] f32: four corner reads per cell, their difference
+    modulo 2**32 (the true cell sum, since it fits in int32), then the
+    f32 division by the unclamped cell area the reference performs."""
     _check_boxes(integ, boxes)
     b, k = boxes.shape[:2]
     h, w = integ.shape[1] - 1, integ.shape[2] - 1
@@ -142,8 +150,12 @@ def crop_area_pool_plain(integ, boxes, size):
     bi = bi[:, None, None]
     ya, yb = y0[:, :, None], y1[:, :, None]
     xa, xb = x0[:, None, :], x1[:, None, :]
-    sums = (integ[bi, yb, xb] - integ[bi, ya, xb]
-            - integ[bi, yb, xa] + integ[bi, ya, xa])  # [BK, S, S, 3]
+
+    def corner(y, x):
+        return integ[bi, y, x].to(torch.int64)
+
+    sums = wrap_int32(corner(yb, xb) - corner(ya, xb) - corner(yb, xa)
+                      + corner(ya, xa))  # [BK, S, S, 3]
     norm = (wy[:, :, None] * wx[:, None, :])[..., None]
     out = sums.to(torch.float32) / torch.clamp(norm, min=1.0)
     return out.reshape(b, k, size, size, 3)

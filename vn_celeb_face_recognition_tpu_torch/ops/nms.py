@@ -18,6 +18,21 @@ from .boxes import pairwise_iou
 MAX_K = 7680
 
 
+def check_set_caps(device_type, **caps):
+    """Raise ``ValueError`` when a detector built for the card (``device_type``
+    ``"cuda"``) is given an explicit cap (a keyword here, None when the cap
+    is automatic) that sizes an NMS set beyond ``MAX_K`` boxes: the kernel
+    would refuse that set at the first chunk. The plain version, and so a
+    detector on the CPU, takes sets of any size, as the JAX package does."""
+    if device_type != "cuda":
+        return
+    over = {name: int(cap) for name, cap in caps.items()
+            if cap is not None and int(cap) > MAX_K}
+    if over:
+        raise ValueError(f"{over}: on the card an NMS set holds at most "
+                         f"ops.nms.MAX_K = {MAX_K} boxes")
+
+
 def _check(boxes, scores, valid):
     if boxes.dim() != 3 or boxes.shape[-1] != 4:
         raise ValueError(f"boxes must be [N, K, 4], got {tuple(boxes.shape)}")
