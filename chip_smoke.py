@@ -21,7 +21,9 @@ Phases, one line of output each (a failed phase exits non-zero):
 
    1. card: torch version, nvidia-smi name and power limit, sm_90 check;
    2. build: compiles csrc/*.cu with nvcc (one process per source);
-   3. K2 (pnet_chain) vs the per-level PNet forward, bench shapes, f32;
+   3. K2 (pnet_chain) vs the per-level PNet forward, f32, at the default
+      line's pyramid and, timed and bounded too, at the stock line's (128
+      frames, 11 levels from 385 px);
    4. K1 (similarity_warp) vs the plain bilinear warp, 512 faces: the
       windows form with F.grid_sample on the same f32 windows as the
       library yardstick, and the frames form (uint8 frames, the engine's
@@ -48,7 +50,9 @@ Phases, one line of output each (a failed phase exits non-zero):
   14. the MTCNN host API (detect, __call__) on the card vs the CPU, and
       detect on the card on the 4032x3024 frame, which must find the faces
       pasted into it;
-  15. K6 (mnet_stage1) vs the stage's cuDNN modules, 128x640x640;
+  15. K6 (mnet_stage1) vs the stage's cuDNN modules, 128x640x640 and
+      ragged 97x131 frames (also a view not on 16 bytes), with each
+      segment's device time beside its own bytes/FLOP floor;
   16. K7 (emotion_stem) vs resize + normalise + cuDNN stem, 512 faces;
   17. K8 (bottleneck_chain) vs the blocks' cuDNN modules, layer1 and
       layer2 tails at 512 faces and at 3 (a ragged last tile), with each
@@ -107,8 +111,8 @@ KERNEL_SOURCES = {
 KERNEL_GRIDS = {
     "pnet_chain": ("pnet_chain_kernel",),
     "similarity_warp": ("similarity_warp_kernel",),
-    "mnet_stage1": ("segment_kernel",),
-    "emotion_stem": ("emotion_stem_kernel",),
+    "mnet_stage1": ("segment_kernel", "segment_mma"),
+    "emotion_stem": ("emotion_stem_kernel", "emotion_stem_mma"),
     "bottleneck_chain": ("conv_gemm_bf16",),
     "nms_keep_mask": ("nms_keep_kernel",),
     "crop_area_resize": ("row_scan_kernel", "col_scan_kernel",
@@ -119,6 +123,9 @@ KERNEL_GRIDS = {
 # in the profiler's (demangled or mangled) kernel name
 CONV_ARGS = re.compile(r"conv_gemm_bf16(?:<(\d+), (\d+), (true|false)>|"
                        r"ILi(\d+)ELi(\d+)ELb([01])E)")
+# K6's bf16 segments by grid: segment_mma_first is segment 1, and the
+# first template argument (C_in) of segment_mma tells segments 2 and 3
+SEGMENT_ARGS = re.compile(r"segment_mma(?:(_first)|<(\d+),|ILi(\d+)E)")
 # a 12 MP photo (4032x3024), above the 8,421,504 pixels whose int32 prefix
 # sums of 255 stay below 2**31
 BIG_H, BIG_W = 3024, 4032
@@ -734,21 +741,46 @@ def phase_k5(torch, kernels, K5, det, card, results):
           f"conv + PReLU + pool + conv + PReLU) ({TIMING}; {card})")
 
 
-def mnet_stage1_flops(h, w):
-    """Multiply-adds x2 of MobileNetV1-0.25 stage 1 on one h x w frame."""
+def stage1_block_flops(h, w):
+    """Multiply-adds x2 of each block of MobileNetV1-0.25 stage 1 on one
+    h x w frame."""
     from vn_celeb_face_recognition_tpu_torch.ops.planar_s1 import (
         STAGE1_SPECS,
     )
 
-    flops = 0
+    flops = []
     for kind, cin, cout, stride in STAGE1_SPECS:
         if stride == 2:
             h, w = (h + 1) // 2, (w + 1) // 2
         if kind == "conv_bn":
-            flops += 2 * h * w * cout * cin * 9
+            flops.append(2 * h * w * cout * cin * 9)
         else:
-            flops += 2 * h * w * cin * 9 + 2 * h * w * cin * cout
+            flops.append(2 * h * w * cin * 9 + 2 * h * w * cin * cout)
     return flops
+
+
+def mnet_stage1_flops(h, w):
+    """Multiply-adds x2 of MobileNetV1-0.25 stage 1 on one h x w frame."""
+    return sum(stage1_block_flops(h, w))
+
+
+def mnet_segment_work(b, h, w):
+    """(bytes, FLOPs) of K6's three bf16 launches on b h x w frames: each
+    reads its input once (u8 frames, then bf16 scratch) and writes its
+    output once (bf16), and does the FLOPs of its two blocks."""
+    flops = stage1_block_flops(h, w)
+    sides, sizes = [(h, w)], [3]
+    for c in (16, 32, 64):
+        h, w = (h + 1) // 2, (w + 1) // 2
+        sides.append((h, w))
+        sizes.append(2 * c)
+    work = {}
+    for i in range(3):
+        (hi, wi), (ho, wo) = sides[i], sides[i + 1]
+        nbytes = b * (hi * wi * sizes[i] + ho * wo * sizes[i + 1])
+        work[f"segment {i + 1}"] = (nbytes,
+                                    b * (flops[2 * i] + flops[2 * i + 1]))
+    return work
 
 
 def pnet_flops(sizes):
@@ -936,10 +968,9 @@ def phase_k1(torch, F, kernels, K1, frames, card, results):
           f"{old_ms:.4f} ms ({card})")
 
 
-def conv_device_ms(torch, fn, runs=20):
-    """Device ms per call of fn() in K8's grids, by convolution of the
-    block (conv1, conv2, conv3, summed over the chain's blocks), read from
-    the template arguments in the profiler's kernel names."""
+def device_ms_by(torch, fn, role_of, runs=20):
+    """Device ms per call of fn(), summed by ``role_of(kernel name)`` over
+    the grids it gives a role (None: not counted), from torch.profiler."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -951,18 +982,46 @@ def conv_device_ms(torch, fn, runs=20):
         torch.cuda.synchronize()
     out = {}
     for e in prof.key_averages():
-        if e.device_type != DeviceType.CUDA or "conv_gemm_bf16" not in e.key:
-            continue
-        args = CONV_ARGS.search(e.key)
-        if args is None:
-            fail(f"K8: no template arguments in the kernel name {e.key!r}")
-        taps = args.group(2) or args.group(5)
-        res = (args.group(3) or args.group(6)) in ("true", "1")
-        role = "conv2" if taps == "9" else "conv3" if res else "conv1"
-        out[role] = out.get(role, 0.0) + e.self_device_time_total / runs / 1e3
+        role = role_of(e.key) if e.device_type == DeviceType.CUDA else None
+        if role is not None:
+            out[role] = (out.get(role, 0.0)
+                         + e.self_device_time_total / runs / 1e3)
+    return out
+
+
+def conv_role(key):
+    """K8's convolution (conv1, conv2, conv3) of a grid, from the template
+    arguments <BN, TAPS, RES> in the profiler's kernel name."""
+    if "conv_gemm_bf16" not in key:
+        return None
+    args = CONV_ARGS.search(key)
+    if args is None:
+        fail(f"K8: no template arguments in the kernel name {key!r}")
+    taps = args.group(2) or args.group(5)
+    res = (args.group(3) or args.group(6)) in ("true", "1")
+    return "conv2" if taps == "9" else "conv3" if res else "conv1"
+
+
+def conv_device_ms(torch, fn, runs=20):
+    """Device ms per call of fn() in K8's grids, by convolution of the
+    block (conv1, conv2, conv3, summed over the chain's blocks)."""
+    out = device_ms_by(torch, fn, conv_role, runs)
     if sorted(out) != ["conv1", "conv2", "conv3"]:
         fail(f"K8: profiled convolutions {sorted(out)}")
     return out
+
+
+def segment_role(key):
+    """K6's bf16 segment of a grid, from its name and first template
+    argument."""
+    if "segment_mma" not in key:
+        return None
+    args = SEGMENT_ARGS.search(key)
+    cin = args and (args.group(2) or args.group(3))
+    if args is None or not (args.group(1) or cin in ("16", "32")):
+        fail(f"K6: no segment in the kernel name {key!r}")
+    return ("segment 1" if args.group(1) else
+            "segment 2" if cin == "16" else "segment 3")
 
 
 def conv_work(m, c, p):
@@ -1117,6 +1176,8 @@ def main():
 
     frames_np = build_frames(BATCH, SIZE, FACES_PER_FRAME)
     frames = torch.from_numpy(frames_np).to(dev)
+    stock_np = build_frames(STOCK_BATCH, SIZE, FACES_PER_FRAME)
+    stock = torch.from_numpy(stock_np).to(dev)
     results = {}
 
     # ---- 3. K2 vs plain ------------------------------------------------
@@ -1147,13 +1208,40 @@ def main():
           f"ms, plain {plain_ms:.3f} ms, bound {bound_ms:.3f} ms "
           f"({bound_by}) ({TIMING}; {card})")
     del planes, got, want
+    # the stock line's pyramid: MTCNN min_face_size=20 on 128 frames
+    ssizes = [(int(SIZE * s + 1), int(SIZE * s + 1)) for s in
+              MTCNN(min_face_size=20, device=dev)._scales(SIZE, SIZE)]
+    planes = pyramid_planes(stock.to(torch.float32), ssizes)
+    got = through_kernel(kernels, "pnet_chain",
+                         lambda: K2.pnet_chain(det.pnet, planes))
+    want = K2.pnet_chain_plain(det.pnet, planes)
+    serr = 0.0
+    for (gp, gr), (wp, wr), s in zip(got, want, ssizes):
+        serr = max(serr,
+                   check_close(torch, gp, wp, 1e-4, 1e-5, f"K2 stock p {s}"),
+                   check_close(torch, gr, wr, 1e-4, 1e-5, f"K2 stock reg {s}"))
+    sms, scall_ms, splain_ms = timed(
+        torch, "pnet_chain", lambda: K2.pnet_chain(det.pnet, planes),
+        lambda: K2.pnet_chain_plain(det.pnet, planes), plain_runs=5)
+    cells = sum(STOCK_BATCH * np.prod(K2.level_cells(*s)) for s in ssizes)
+    nbytes = sum(p.numel() * 4 for p in planes) + cells * 5 * 4
+    sbound_ms, sbound_by = bound(nbytes, STOCK_BATCH * pnet_flops(ssizes),
+                                 PEAK_F32)
+    results["pnet_chain"].update(
+        stock_max_abs_err=serr, stock_ms=sms, stock_call_ms=scall_ms,
+        stock_plain_ms=splain_ms, stock_bound_ms=sbound_ms,
+        stock_bound_by=sbound_by)
+    phase("K2", f"pnet_chain at the stock pyramid {STOCK_BATCH}x{SIZE}x"
+          f"{SIZE}, levels {[s[0] for s in ssizes]}, f32: max abs err "
+          f"{serr:.3e} (rtol 1e-4, atol 1e-5); kernel {sms:.3f} ms, call "
+          f"{scall_ms:.3f} ms, plain {splain_ms:.3f} ms, bound "
+          f"{sbound_ms:.3f} ms ({sbound_by}) ({TIMING}; {card})")
+    del planes, got, want
 
     # ---- 4. K1 vs plain ------------------------------------------------
     phase_k1(torch, F, kernels, K1, frames, card, results)
 
     # ---- 5-7. K3, K4, K5 vs plain at the stock line's shapes ------------
-    stock_np = build_frames(STOCK_BATCH, SIZE, FACES_PER_FRAME)
-    stock = torch.from_numpy(stock_np).to(dev)
     phase_k3(torch, kernels, K3, dev, card, results)
     big_np, pasted = big_frame()
     big = torch.from_numpy(big_np[None]).to(dev)
@@ -1270,6 +1358,20 @@ def main():
     err, rel_l2, rel_max, plain16 = check_bf16(
         torch, got, want, K6.mnet_stage1_plain(stage1, prod, sub,
                                                torch.bfloat16), "K6 bf16")
+    # 97x131 frames: every segment's last tile ragged, and the frame rows
+    # start at every offset of the 16-byte pieces segment 1 stages; then a
+    # view that does not start on 16 bytes (the wrapper copies it)
+    odd = torch.from_numpy(np.random.default_rng(5).integers(
+        0, 256, (3, 97, 131, 3), dtype=np.uint8)).to(dev)
+    ragged = []
+    for what, fr in (("2x97x131", odd[:2]), ("unaligned view", odd[1:])):
+        _, rel_o, rel_max_o, _ = check_bf16(
+            torch, K6.mnet_stage1(stage1, fr, sub, torch.bfloat16),
+            K6.mnet_stage1_plain(stage1, fr, sub, torch.float32),
+            K6.mnet_stage1_plain(stage1, fr, sub, torch.bfloat16),
+            f"K6 bf16 {what}")
+        ragged.append(f"{what} rel L2 {rel_o:.2e}, max/max|ref| "
+                      f"{rel_max_o:.2e}")
     few = prod[:8]
     err32 = check_close(
         torch, K6.mnet_stage1(stage1, few, sub, torch.float32),
@@ -1286,13 +1388,28 @@ def main():
     results["mnet_stage1"] = dict(max_abs_err=err, ms=ms, call_ms=call_ms,
                                   plain_ms=plain_ms, bound_ms=bound_ms,
                                   bound_by=bound_by, library_ms=None)
+    per_seg = device_ms_by(torch, lambda: K6.mnet_stage1(
+        stage1, prod, sub, torch.bfloat16), segment_role)
+    work = mnet_segment_work(PROD_BATCH, SIZE, SIZE)
+    if sorted(per_seg) != sorted(work):
+        fail(f"K6: profiled segments {sorted(per_seg)}")
+    results["mnet_stage1"]["segment_ms"] = per_seg
+    segs = []
+    for seg, (nbytes, flops) in work.items():
+        t = per_seg[seg]
+        floor_ms, floor_by = bound(nbytes, flops, PEAK_BF16)
+        segs.append(f"{seg} {t:.3f} ms = {flops / t / 1e9:.1f} TFLOP/s, "
+                    f"{nbytes / t / 1e6:.0f} GB/s (own floor {floor_ms:.3f} "
+                    f"ms, {floor_by})")
     phase("K6", f"mnet_stage1 {PROD_BATCH}x{SIZE}x{SIZE} u8 -> "
           f"{tuple(got.shape)} bf16 vs plain f32: max abs err {err:.3e}, "
           f"rel L2 {rel_l2:.2e}, max/max|ref| {rel_max:.2e} (plain bf16 "
-          f"rel L2 {plain16:.2e}); f32 kernel on 8 frames max "
-          f"abs err {err32:.3e} (rtol/atol 1e-4); kernel {ms:.3f} ms, call "
-          f"{call_ms:.3f} ms, plain {plain_ms:.3f} ms, bound {bound_ms:.3f} "
-          f"ms ({bound_by}, bf16 peak) ({TIMING}; {card})")
+          f"rel L2 {plain16:.2e}); {'; '.join(ragged)}; f32 kernel on 8 "
+          f"frames max abs err {err32:.3e} (rtol/atol 1e-4); kernel "
+          f"{ms:.3f} ms ("
+          f"{'; '.join(segs)}), call {call_ms:.3f} ms, plain {plain_ms:.3f} "
+          f"ms, bound {bound_ms:.3f} ms ({bound_by}, bf16 peak) ({TIMING}; "
+          f"{card})")
     del got, want
 
     # ---- 16. K7 vs plain ------------------------------------------------
@@ -1412,13 +1529,15 @@ def main():
     kernel_rows = []
     for kname, (src, replaces) in KERNEL_SOURCES.items():
         r = results[kname]
+        # the contract's keys, then call_ms, K2's stock-pyramid numbers and
+        # K6's per-segment device times
         kernel_rows.append({
             "name": kname, "route": "cuda", "source": src,
-            "replaces": replaces, "launches": r["launches"],
-            "max_abs_err": r["max_abs_err"], "ms": r["ms"],
-            "call_ms": r["call_ms"], "plain_ms": r["plain_ms"],
-            "bound_ms": r["bound_ms"],
-            "bound_by": r["bound_by"], "library_ms": r["library_ms"]})
+            "replaces": replaces, "launches": r.pop("launches"),
+            "max_abs_err": r.pop("max_abs_err"), "ms": r.pop("ms"),
+            "plain_ms": r.pop("plain_ms"), "bound_ms": r.pop("bound_ms"),
+            "bound_by": r.pop("bound_by"), "library_ms": r.pop("library_ms"),
+            **r})
     phase("done", f"all phases passed in {time.perf_counter() - t_start:.1f}"
           " s after the card check")
     print(json.dumps({"kernels": kernel_rows}))

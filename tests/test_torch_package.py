@@ -3,6 +3,7 @@ face PNGs without PIL, selects devices without falling back, and its
 kernel wrappers dispatch on the tensor's device."""
 
 import os
+import re
 import subprocess
 import sys
 
@@ -104,6 +105,16 @@ def test_kernel_build_bookkeeping(tmp_path, monkeypatch):
         "crop_area_pool.cu", "crop_net_trunk.cu", "launch.cuh", "mma.cuh"}
     digest = kernels.sources_hash()
     assert digest == kernels.sources_hash() and len(digest) == 64
+    # every device function chip_smoke.py times a kernel by is a grid in
+    # the sources (K6's and K7's bf16 tensor-core grids among them)
+    sys.path.insert(0, REPO_ROOT)
+    from chip_smoke import KERNEL_GRIDS
+
+    sources = "".join(open(s).read() for s in kernels._sources())
+    grids = {g for names in KERNEL_GRIDS.values() for g in names}
+    assert {"segment_mma", "emotion_stem_mma"} <= grids
+    for grid in grids:
+        assert re.search(rf"[\s*]{grid}\w*\(", sources), grid
     assert set(kernels.launch_counts()) == {
         "pnet_chain", "similarity_warp", "mnet_stage1", "emotion_stem",
         "bottleneck_chain", "nms_keep_mask", "crop_area_resize",
@@ -195,8 +206,12 @@ def test_new_kernel_wrappers_never_fall_back():
          lambda f, t: f(ONet(), t, K5.ONET_SPEC), torch.zeros((1, 48, 48, 3))),
         (K6.mnet_stage1_kernel, K6.mnet_stage1,
          lambda f, t: f(stage1, t, sub, torch.float32), frames),
+        (K6.mnet_stage1_kernel, K6.mnet_stage1,  # the tensor-core grids
+         lambda f, t: f(stage1, t, sub, torch.bfloat16), frames),
         (K7.emotion_stem_kernel, K7.emotion_stem,
          lambda f, t: f(emo.conv1, emo.bn1, t, torch.float32), faces),
+        (K7.emotion_stem_kernel, K7.emotion_stem,
+         lambda f, t: f(emo.conv1, emo.bn1, t, torch.bfloat16), faces),
         (K8.bottleneck_chain_kernel, K8.bottleneck_chain,
          lambda f, t: f(blocks, t), x),
     )

@@ -12,9 +12,11 @@ kernel's taps summed pairwise ({0}, {1, 2}, {3, 4}, {5, 6}, along both
 axes); the normalisation is applied before the zero padding, so the
 padding stays zero in the normalised domain. The CUDA kernel
 ``csrc/emotion_stem.cu`` computes that folded conv with BatchNorm folded
-in, then ReLU and the max pool from shared memory. The TPU kernel's
-subposition GEMM and two-faces-per-128-lanes packing are not carried
-over.
+in, then ReLU and the max pool from shared memory: for bf16 output as an
+implicit GEMM on the tensor cores (``emotion_stem_mma``, B operand from
+``pack_stem_mma_weights``), for f32 output on the CUDA cores
+(``emotion_stem_kernel``). The TPU kernel's subposition GEMM and
+two-faces-per-128-lanes packing are not carried over.
 
 ``emotion_stem`` takes the plain PyTorch version (resize, normalise,
 cuDNN conv) for CPU tensors only and launches the kernel for CUDA
@@ -45,6 +47,24 @@ def fold_stem_weights(conv1, bn1):
     return torch.cat([(k * inv).reshape(-1), shift]).contiguous()
 
 
+@torch.no_grad()
+def pack_stem_mma_weights(conv1, bn1):
+    """The bf16 kernel's B operand: the folded 4x4 kernel (BN scale folded
+    in) as [64, 48] bf16, n-major with k = (dy*4 + dx)*3 + c contiguous."""
+    fold = fold_stem_weights(conv1, bn1)
+    return fold[:48 * CH].reshape(48, CH).t().to(torch.bfloat16).contiguous()
+
+
+def _kernel_weights(conv1, bn1, dtype):
+    """The buffer the C entry point reads: the f32 fold, followed for bf16
+    output by the packed B operand (its bf16 bits viewed as f32)."""
+    fold = fold_stem_weights(conv1, bn1)
+    if dtype != torch.bfloat16:
+        return fold
+    b = pack_stem_mma_weights(conv1, bn1).reshape(-1).view(torch.float32)
+    return torch.cat([fold, b])
+
+
 def _check(faces):
     if tuple(faces.shape[1:]) != (FACE, FACE, 3):
         raise ValueError(f"faces must be [K, {FACE}, {FACE}, 3], got "
@@ -72,8 +92,8 @@ def emotion_stem_kernel(conv1, bn1, faces, dtype):
     kernels.require_cuda_tensor(faces, "faces", torch.float32)
     dev = faces.device
     weights = kernels.cached_fold(
-        (conv1, bn1), ("emotion_stem", str(dev)),
-        lambda: fold_stem_weights(conv1, bn1).to(dev))
+        (conv1, bn1), ("emotion_stem", str(dev), dtype),
+        lambda: _kernel_weights(conv1, bn1, dtype).to(dev))
     k = faces.shape[0]
     out = torch.empty((k, OUT, OUT, CH), dtype=dtype, device=dev)
     if k == 0:

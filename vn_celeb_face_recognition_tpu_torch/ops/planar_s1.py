@@ -6,8 +6,12 @@ function, the six blocks of stage 1 with inference BatchNorm and
 LeakyReLU(0.1) on frames minus the channel means, [B, H, W, 3] uint8 ->
 [B, ceil(H/8), ceil(W/8), 64] NHWC in the compute dtype. The CUDA kernel
 ``csrc/mnet_stage1.cu`` computes it from the frames directly, in three
-launches (one per stride-2 segment, each counted); the TPU kernels'
-space-to-depth planes and lane rolls are not carried over.
+launches (one per stride-2 segment, each counted): for bf16 output with
+the pointwise convolutions and conv0 on the tensor cores
+(``segment_mma_first``, ``segment_mma``; their bf16 weights from
+``pack_stage1_mma_weights``), for f32 output on the CUDA cores
+(``segment_kernel``). The TPU kernels' space-to-depth planes and lane
+rolls are not carried over.
 
 ``mnet_stage1`` takes the plain PyTorch version (the stage's own NCHW
 modules) for CPU tensors only and launches the kernel for CUDA tensors.
@@ -31,6 +35,13 @@ STAGE1_SPECS = (
 # packed weights of csrc/mnet_stage1.cu: 4 (means + pad), then the three
 # segments (blocks 0-1, 2-3, 4-5)
 N_WEIGHTS = 4 + 480 + 2192 + 7456
+# the bf16 kernels' [out][in] matrices (in padded to 16, conv0's 27 taps x
+# channels to 32), each as hi = bf16(w) followed by lo = bf16(w - hi):
+# name -> (element offset of hi, out, in), as csrc/mnet_stage1.cu reads them
+MMA_LAYOUT = {"conv0": (0, 8, 32), "pw1": (512, 16, 16),
+              "pw2": (1024, 32, 16), "pw3": (2048, 32, 32),
+              "pw4": (4096, 64, 32), "pw5": (8192, 64, 64)}
+N_MMA_WEIGHTS = 16384
 
 
 def _bn_mul_add(bn):
@@ -72,6 +83,41 @@ def pack_stage1_weights(stage1, sub):
     return flat
 
 
+@torch.no_grad()
+def pack_stage1_mma_weights(stage1):
+    """Stage-1 modules -> [N_MMA_WEIGHTS] bf16, the B operands of the bf16
+    kernels as ``MMA_LAYOUT`` places them: conv0 as [8, 32] with column
+    (ky*3 + kx)*3 + c (zero from 27), each pointwise conv as [out, in]
+    (block 1's 8 inputs padded with zeros to 16); each matrix as its bf16
+    rounding hi, then the bf16 rounding of the rest, lo = w - hi."""
+    flat = torch.zeros(N_MMA_WEIGHTS, dtype=torch.bfloat16)
+    for i, (kind, _, _, _) in enumerate(STAGE1_SPECS):
+        blk = stage1[i]
+        if kind == "conv_bn":
+            name, mat = "conv0", blk[0].weight.permute(0, 2, 3, 1).reshape(
+                blk[0].weight.shape[0], -1)
+        else:
+            name, mat = f"pw{i}", blk[3].weight[:, :, 0, 0]
+        at, rows, cols = MMA_LAYOUT[name]
+        full = torch.zeros(rows, cols)
+        full[:, :mat.shape[1]] = mat.to(torch.float32).cpu()
+        hi = full.to(torch.bfloat16)
+        lo = (full - hi.to(torch.float32)).to(torch.bfloat16)
+        flat[at:at + 2 * rows * cols] = torch.cat([hi.reshape(-1),
+                                                   lo.reshape(-1)])
+    return flat
+
+
+def _kernel_weights(stage1, sub, dtype):
+    """The buffer the C entry point reads: the f32 pack, followed for bf16
+    output by the bf16 pack (its bits viewed as f32)."""
+    flat = pack_stage1_weights(stage1, sub)
+    if dtype != torch.bfloat16:
+        return flat
+    mma = pack_stage1_mma_weights(stage1).view(torch.float32)
+    return torch.cat([flat, mma])
+
+
 def _check(frames):
     if frames.dim() != 4 or frames.shape[-1] != 3:
         raise ValueError(f"frames must be [B, H, W, 3], got "
@@ -105,10 +151,12 @@ def mnet_stage1_kernel(stage1, frames, sub, dtype):
         raise ValueError(f"unsupported compute dtype {dtype}")
     frames = frames.contiguous()
     kernels.require_cuda_tensor(frames, "frames", torch.uint8)
+    if frames.data_ptr() % 16:  # the kernel copies 16-byte aligned pieces
+        frames = frames.clone()
     dev = frames.device
     weights = kernels.cached_fold(
-        stage1, ("mnet_stage1", str(dev), tuple(sub)),
-        lambda: pack_stage1_weights(stage1, sub).to(dev))
+        stage1, ("mnet_stage1", str(dev), tuple(sub), dtype),
+        lambda: _kernel_weights(stage1, sub, dtype).to(dev))
     b, h, w, _ = frames.shape
     h2, w2 = (h + 1) // 2, (w + 1) // 2
     h4, w4 = (h2 + 1) // 2, (w2 + 1) // 2
