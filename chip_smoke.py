@@ -21,9 +21,12 @@ Phases, one line of output each (a failed phase exits non-zero):
 
    1. card: torch version, nvidia-smi name and power limit, sm_90 check;
    2. build: compiles csrc/*.cu with nvcc (one process per source);
-   3. K2 (pnet_chain) vs the per-level PNet forward, f32, at the default
-      line's pyramid and, timed and bounded too, at the stock line's (128
-      frames, 11 levels from 385 px);
+   3. K2 (pnet_chain: pyramid + PNet read from the chunk's integral
+      image) vs the plain version (pyramid_planes + the per-level PNet
+      forward) at the default line's pyramid and the stock line's (128
+      frames, 11 levels from 385 px): the f32 grid at 1e-4 against plain
+      f32, the bf16 tensor-core grid by check_bf16; both grids timed and
+      bounded, and the plain pyramid feed they replaced timed alone;
    4. K1 (similarity_warp) vs the plain bilinear warp, 512 faces: the
       windows form with F.grid_sample on the same f32 windows as the
       library yardstick, and the frames form (uint8 frames, the engine's
@@ -34,9 +37,12 @@ Phases, one line of output each (a failed phase exits non-zero):
    5. K3 (nms_keep_mask) keep masks equal to the plain fixpoint at six
       shapes (stock per-scale, cross-scale, ONet stage, RetinaFace, one
       set of 4,096, all-equal scores);
-   6. K4 (crop_area_resize) bit-exact to the plain integral-image crops
+   6. K4 (crop_area_resize: the integral image in two grids, band totals
+      and one scan that writes each entry once, and pools that compute
+      their own cell bounds) bit-exact to the plain integral-image crops
       on the stock chunk at S = 24 and 48, and on one 4032x3024 frame
-      whose int32 prefix sums wrap;
+      whose int32 prefix sums wrap; the integral image timed alone and
+      with both pools;
    7. K5 (crop_net_trunk) vs the nets' cuDNN modules at the stock line's
       crop counts (bf16 on the tensor cores, f32 on 1,024 crops), RNet
       and ONet timed apart with their TFLOP/s and GB/s;
@@ -109,13 +115,13 @@ KERNEL_SOURCES = {
 # the device functions each kernel's wrapper launches, by name in
 # torch.profiler's trace: a kernel's ``ms`` is their device time
 KERNEL_GRIDS = {
-    "pnet_chain": ("pnet_chain_kernel",),
+    "pnet_chain": ("pnet_frames_f32", "pnet_frames_mma"),
     "similarity_warp": ("similarity_warp_kernel",),
     "mnet_stage1": ("segment_kernel", "segment_mma"),
     "emotion_stem": ("emotion_stem_kernel", "emotion_stem_mma"),
     "bottleneck_chain": ("conv_gemm_bf16",),
     "nms_keep_mask": ("nms_keep_kernel",),
-    "crop_area_resize": ("row_scan_kernel", "col_scan_kernel",
+    "crop_area_resize": ("band_totals_kernel", "band_scan_kernel",
                          "crop_pool_kernel"),
     "crop_net_trunk": ("crop_net_trunk_mma",),
 }
@@ -661,7 +667,8 @@ def phase_k4(torch, kernels, K4, frames, big, pasted, card, results):
     results["crop_area_resize"] = dict(max_abs_err=0.0, ms=ms,
                                        call_ms=call_ms, plain_ms=plain_ms,
                                        bound_ms=bound_ms, bound_by=bound_by,
-                                       library_ms=None)
+                                       library_ms=None,
+                                       integral_image_ms=ms_integ)
     phase("K4", f"crop_area_resize {b}x{h}x{w} u8, K=256 S=24 and K=128 "
           "S=48 (full-frame, off-frame, inverted boxes): bit-exact "
           f"(torch.equal); one {BIG_W}x{BIG_H} frame (prefix sums wrap), "
@@ -739,6 +746,91 @@ def phase_k5(torch, kernels, K5, det, card, results):
           f"bound {bound_ms:.3f} ms ({bound_by}, {flops / 1e9:.1f} GFLOP at "
           "the bf16 peak); library none (no single PyTorch call computes "
           f"conv + PReLU + pool + conv + PReLU) ({TIMING}; {card})")
+
+
+def pnet_maps(torch, maps):
+    """Every level's (probs, reg) maps as one flat f32 vector."""
+    return torch.cat([t.reshape(-1).to(torch.float32) for pr in maps
+                      for t in pr])
+
+
+def phase_k2(torch, kernels, K2, K4, pyramid_planes, pnet, pyramids, card,
+             results):
+    """K2 read from the integral image, both grids, at the default and the
+    stock line's pyramids: the f32 grid vs the plain version in f32 (rtol
+    1e-4, atol 1e-5), the bf16 grid (the lines' path) by ``check_bf16``;
+    each timed beside its bound (the integral image read once, 20 B
+    written per cell; FLOPs at the bf16 or the f32 peak), and the plain
+    ``pyramid_planes`` feed (f32 cast, weight copies and GEMMs) that the
+    frames form replaced, timed alone."""
+    row = results.setdefault("pnet_chain", {})
+    for label, fr, sizes in pyramids:
+        b = fr.shape[0]
+        integ = K4.integral_image(fr)
+
+        def kernel(dtype):
+            return K2.pyramid_pnet(pnet, fr, sizes, integ, dtype)
+
+        want32 = K2.pyramid_pnet_plain(pnet, fr, sizes, torch.float32)
+        got32 = through_kernel(kernels, "pnet_chain",
+                               lambda: kernel(torch.float32))
+        err32 = 0.0
+        for (gp, gr), (wp, wr), sz in zip(got32, want32, sizes):
+            err32 = max(err32,
+                        check_close(torch, gp, wp, 1e-4, 1e-5,
+                                    f"K2 {label} f32 p {sz}"),
+                        check_close(torch, gr, wr, 1e-4, 1e-5,
+                                    f"K2 {label} f32 reg {sz}"))
+        got16 = through_kernel(kernels, "pnet_chain",
+                               lambda: kernel(torch.bfloat16))
+        want16 = K2.pyramid_pnet_plain(pnet, fr, sizes, torch.bfloat16)
+        err, rel_l2, rel_max, plain16 = check_bf16(
+            torch, pnet_maps(torch, got16), pnet_maps(torch, want32),
+            pnet_maps(torch, want16), f"K2 {label} bf16")
+        del got32, want32, got16, want16
+        ms, call_ms, plain_ms = timed(
+            torch, "pnet_chain", lambda: kernel(torch.bfloat16),
+            lambda: K2.pyramid_pnet_plain(pnet, fr, sizes, torch.bfloat16),
+            plain_runs=5)
+        ms32, call32, plain32 = timed(
+            torch, "pnet_chain", lambda: kernel(torch.float32),
+            lambda: K2.pyramid_pnet_plain(pnet, fr, sizes, torch.float32),
+            plain_runs=5)
+        feed_ms = device_ms(torch, lambda: pyramid_planes(
+            fr.to(torch.float32), sizes), runs=5)
+        cells = sum(b * int(np.prod(K2.level_cells(*s))) for s in sizes)
+        nbytes = integ.numel() * 4 + cells * 5 * 4
+        flops = b * pnet_flops(sizes)
+        bound16, by16 = bound(nbytes, flops, PEAK_BF16)
+        bound32, by32 = bound(nbytes, flops, PEAK_F32)
+        pre = "" if label == "default" else f"{label}_"
+        if label == "default":  # the contract's keys: the lines' bf16 grid
+            row.update(max_abs_err=err, ms=ms, call_ms=call_ms,
+                       plain_ms=plain_ms, bound_ms=bound16, bound_by=by16,
+                       library_ms=None)
+        else:
+            row.update({f"{pre}max_abs_err": err, f"{pre}ms": ms,
+                        f"{pre}call_ms": call_ms, f"{pre}plain_ms": plain_ms,
+                        f"{pre}bound_ms": bound16, f"{pre}bound_by": by16})
+        row.update({f"{pre}f32_max_abs_err": err32, f"{pre}f32_ms": ms32,
+                    f"{pre}f32_call_ms": call32, f"{pre}f32_plain_ms": plain32,
+                    f"{pre}f32_bound_ms": bound32, f"{pre}f32_bound_by": by32,
+                    f"{pre}pyramid_feed_ms": feed_ms})
+        phase("K2", f"pyramid_pnet {label} {b}x{SIZE}x{SIZE} u8 from the "
+              f"integral image, levels {[s[0] for s in sizes]}: bf16 grid "
+              f"vs plain f32 max abs err {err:.3e}, rel L2 {rel_l2:.2e}, "
+              f"max/max|ref| {rel_max:.2e} (plain bf16 rel L2 "
+              f"{plain16:.2e}); kernel {ms:.3f} ms, call {call_ms:.3f} ms, "
+              f"plain bf16 {plain_ms:.3f} ms, bound {bound16:.3f} ms ({by16},"
+              f" bf16 peak). f32 grid vs plain f32 max abs err {err32:.3e} "
+              f"(rtol 1e-4, atol 1e-5); kernel {ms32:.3f} ms, call "
+              f"{call32:.3f} ms, plain f32 {plain32:.3f} ms, bound "
+              f"{bound32:.3f} ms ({by32}, f32 peak). The plain pyramid feed "
+              f"the frames form replaced (f32 cast, weight copies, "
+              f"pyramid_planes GEMMs) {feed_ms:.3f} ms. Library none (no "
+              f"PyTorch call computes the pyramid + PNet chain) ({TIMING}; "
+              f"{card})")
+        del integ
 
 
 def stage1_block_flops(h, w):
@@ -1182,61 +1274,14 @@ def main():
 
     # ---- 3. K2 vs plain ------------------------------------------------
     det = MTCNN(dtype=torch.bfloat16, device=dev, **DETECTOR)
-    scales = det._scales(SIZE, SIZE)
-    sizes = [(int(SIZE * s + 1), int(SIZE * s + 1)) for s in scales]
-    planes = pyramid_planes(frames.to(torch.float32), sizes)
-    got = through_kernel(kernels, "pnet_chain",
-                         lambda: K2.pnet_chain(det.pnet, planes))
-    want = K2.pnet_chain_plain(det.pnet, planes)
-    torch.cuda.synchronize()
-    err = 0.0
-    for (gp, gr), (wp, wr), s in zip(got, want, sizes):
-        err = max(err, check_close(torch, gp, wp, 1e-4, 1e-5, f"K2 p {s}"),
-                  check_close(torch, gr, wr, 1e-4, 1e-5, f"K2 reg {s}"))
-    ms, call_ms, plain_ms = timed(
-        torch, "pnet_chain", lambda: K2.pnet_chain(det.pnet, planes),
-        lambda: K2.pnet_chain_plain(det.pnet, planes))
-    cells = sum(BATCH * np.prod(K2.level_cells(*s)) for s in sizes)
-    nbytes = sum(p.numel() * 4 for p in planes) + cells * 5 * 4
-    bound_ms, bound_by = bound(nbytes, BATCH * pnet_flops(sizes), PEAK_F32)
-    results["pnet_chain"] = dict(max_abs_err=err, ms=ms, call_ms=call_ms,
-                                 plain_ms=plain_ms, bound_ms=bound_ms,
-                                 bound_by=bound_by, library_ms=None)
-    phase("K2", f"pnet_chain {BATCH}x{SIZE}x{SIZE}, levels "
-          f"{[s[0] for s in sizes]}, f32: max abs err {err:.3e} "
-          f"(rtol 1e-4, atol 1e-5); kernel {ms:.3f} ms, call {call_ms:.3f} "
-          f"ms, plain {plain_ms:.3f} ms, bound {bound_ms:.3f} ms "
-          f"({bound_by}) ({TIMING}; {card})")
-    del planes, got, want
-    # the stock line's pyramid: MTCNN min_face_size=20 on 128 frames
-    ssizes = [(int(SIZE * s + 1), int(SIZE * s + 1)) for s in
-              MTCNN(min_face_size=20, device=dev)._scales(SIZE, SIZE)]
-    planes = pyramid_planes(stock.to(torch.float32), ssizes)
-    got = through_kernel(kernels, "pnet_chain",
-                         lambda: K2.pnet_chain(det.pnet, planes))
-    want = K2.pnet_chain_plain(det.pnet, planes)
-    serr = 0.0
-    for (gp, gr), (wp, wr), s in zip(got, want, ssizes):
-        serr = max(serr,
-                   check_close(torch, gp, wp, 1e-4, 1e-5, f"K2 stock p {s}"),
-                   check_close(torch, gr, wr, 1e-4, 1e-5, f"K2 stock reg {s}"))
-    sms, scall_ms, splain_ms = timed(
-        torch, "pnet_chain", lambda: K2.pnet_chain(det.pnet, planes),
-        lambda: K2.pnet_chain_plain(det.pnet, planes), plain_runs=5)
-    cells = sum(STOCK_BATCH * np.prod(K2.level_cells(*s)) for s in ssizes)
-    nbytes = sum(p.numel() * 4 for p in planes) + cells * 5 * 4
-    sbound_ms, sbound_by = bound(nbytes, STOCK_BATCH * pnet_flops(ssizes),
-                                 PEAK_F32)
-    results["pnet_chain"].update(
-        stock_max_abs_err=serr, stock_ms=sms, stock_call_ms=scall_ms,
-        stock_plain_ms=splain_ms, stock_bound_ms=sbound_ms,
-        stock_bound_by=sbound_by)
-    phase("K2", f"pnet_chain at the stock pyramid {STOCK_BATCH}x{SIZE}x"
-          f"{SIZE}, levels {[s[0] for s in ssizes]}, f32: max abs err "
-          f"{serr:.3e} (rtol 1e-4, atol 1e-5); kernel {sms:.3f} ms, call "
-          f"{scall_ms:.3f} ms, plain {splain_ms:.3f} ms, bound "
-          f"{sbound_ms:.3f} ms ({sbound_by}) ({TIMING}; {card})")
-    del planes, got, want
+    pyramids = []
+    for label, fr, kw in (("default", frames, DETECTOR),
+                          ("stock", stock, dict(min_face_size=20))):
+        scales = MTCNN(device=dev, **kw)._scales(SIZE, SIZE)
+        pyramids.append((label, fr, [(int(SIZE * s + 1), int(SIZE * s + 1))
+                                     for s in scales]))
+    phase_k2(torch, kernels, K2, K4, pyramid_planes, det.pnet, pyramids,
+             card, results)
 
     # ---- 4. K1 vs plain ------------------------------------------------
     phase_k1(torch, F, kernels, K1, frames, card, results)

@@ -173,9 +173,10 @@ def test_crop_matches_pallas_bit_exact(size):
 
 
 def test_crop_kernel_tables_emulation():
-    """What csrc/crop_area_pool.cu computes: a row scan then a column scan
-    (int32) for the integral image, then four corner reads of the int32
-    tables and one f32 division by wy * wx (at least 1) per cell."""
+    """The arithmetic of csrc/crop_area_pool.cu: an int32 integral image
+    (prefix sums along x, then y), then per cell four corner reads at the
+    bounds of ``pool_tables`` (which the kernel computes per cell) and one
+    f32 division by wy * wx (at least 1)."""
     imgs, boxes = _crop_inputs(5, h=41, w=57, k=9)
     rows = np.cumsum(imgs.astype(np.int32), axis=2, dtype=np.int32)
     integ = np.zeros((2, 42, 58, 3), np.int32)

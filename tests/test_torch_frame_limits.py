@@ -53,12 +53,12 @@ def test_crop_big_frame_matches_jax_bit_exact(big_frame, size):
 
 
 def test_wrapped_integral_image_pools_as_int64(big_frame):
-    """The integral image wraps modulo 2**32 (as the kernel's uint32 row
-    and column scans leave it) and still pools to the cell sums of an
-    int64 integral image, on a frame whose int32 prefix sums overflow."""
+    """The integral image wraps modulo 2**32 (as the kernel's uint32 band
+    scan leaves it) and still pools to the cell sums of an int64
+    integral image, on a frame whose int32 prefix sums overflow."""
     img, boxes = big_frame
     integ = K4.integral_image(torch.from_numpy(img)).numpy()
-    # the kernel's arithmetic: a uint32 row scan, then a uint32 column scan
+    # the kernel's values: uint32 prefix sums along x and y
     scan = np.cumsum(np.cumsum(img.astype(np.uint32), axis=2,
                                dtype=np.uint32), axis=1, dtype=np.uint32)
     np.testing.assert_array_equal(integ[:, 1:, 1:], scan.view(np.int32))

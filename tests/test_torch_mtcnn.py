@@ -76,22 +76,22 @@ def test_stage1_matches_pallas_pyramid_pnet(nets):
 
 
 def test_level_table_covers_every_cell():
-    """The kernel's tile table: tiles of 16x16 cells cover each level of
-    each frame exactly once, and offsets are the packed prefix sums."""
-    sizes = [(154, 154), (109, 109), (55, 39), (14, 14)]
+    """The kernel's tile table, frame-major: tiles of 16x16 cells are
+    numbered level after level within a frame, frame after frame, and
+    output offsets are the prefix sums of the [B, hc, wc] level blocks."""
+    sizes = ((154, 154), (109, 109), (55, 39), (14, 14))
     table, n_tiles = level_table(3, sizes)
-    tiles = 0
-    in_off = out_off = 0
+    tiles = out_off = 0
     for row, (oh, ow) in zip(table, sizes):
         hc, wc = level_cells(oh, ow)
         assert list(row[:4]) == [oh, ow, hc, wc]
-        assert row[5] == tiles and row[6] == in_off and row[7] == out_off
+        assert row[5] == tiles and row[6] == out_off and row[7] == 0
         assert row[4] * 16 >= wc > (row[4] - 1) * 16
-        tiles += 3 * row[4] * (-(-hc // 16))
-        in_off += 3 * 3 * oh * ow
+        tiles += row[4] * (-(-hc // 16))
         out_off += 3 * hc * wc
-    assert n_tiles == tiles
+    assert n_tiles == 3 * tiles
     assert level_cells(154, 154) == (72, 72)
+    assert not table.flags.writeable and level_table(3, sizes)[0] is table
 
 
 def test_packed_weights_follow_kernel_layout(nets):

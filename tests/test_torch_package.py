@@ -120,7 +120,7 @@ def test_kernel_build_bookkeeping(tmp_path, monkeypatch):
         "bottleneck_chain", "nms_keep_mask", "crop_area_resize",
         "crop_net_trunk"}
     assert set(kernels.SIGNATURES) == {
-        "vn_similarity_warp", "vn_similarity_warp_boxes", "vn_pnet_chain",
+        "vn_similarity_warp", "vn_similarity_warp_boxes", "vn_pyramid_pnet",
         "vn_mnet_stage1",
         "vn_emotion_stem", "vn_bottleneck_block", "vn_nms_keep_mask",
         "vn_integral_image", "vn_crop_area_pool", "vn_crop_net_trunk"}
@@ -148,18 +148,23 @@ def test_kernel_wrappers_never_fall_back():
 
     windows = torch.zeros((2, 16, 16, 3))
     mats = torch.tensor([[[1.0, 0.0, 0.0], [0.0, 1.0, 0.0]]] * 2)
-    planes = [torch.zeros((1, 3, 30, 30))]
+    frames = torch.zeros((1, 60, 60, 3), dtype=torch.uint8)
+    sizes = [(30, 30)]
     before = kernels.launch_counts()
     with pytest.raises(ValueError, match="must be a CUDA tensor"):
         K1.similarity_warp_kernel(windows, mats, 8)
-    with pytest.raises(ValueError, match="must be a CUDA tensor"):
-        K2.pnet_chain_kernel(PNet(), planes)
+    for dtype in (torch.float32, torch.bfloat16):  # both grids
+        with pytest.raises(ValueError, match="must be a CUDA tensor"):
+            K2.pyramid_pnet_kernel(PNet(), frames, sizes, dtype=dtype)
     with pytest.raises(ValueError, match="unsupported device"):
         K1.similarity_warp(windows.to("meta"), mats.to("meta"), 8)
     with pytest.raises(ValueError, match="unsupported device"):
-        K2.pnet_chain(PNet(), [p.to("meta") for p in planes])
+        K2.pyramid_pnet(PNet(), frames.to("meta"), sizes)
     assert kernels.launch_counts() == before
     assert K1.similarity_warp(windows, mats, 8).shape == (2, 8, 8, 3)
+    (probs, reg), = K2.pyramid_pnet(PNet(), frames, sizes,
+                                    dtype=torch.bfloat16)
+    assert probs.shape == (1, 10, 10) and reg.dtype == torch.float32
     assert kernels.launch_counts() == before
 
 

@@ -6,10 +6,11 @@ counts are fixed capacities with validity masks: top-K per pyramid scale
 after PNet, ``cross_cap`` before the cross-scale NMS, ``rnet_cap`` into
 stage 2, ``onet_cap`` into stage 3 and ``out_cap`` final faces per frame.
 On the card every TPU kernel of the cascade has its CUDA counterpart:
-stage 1 runs every pyramid level through K2 (``ops.pyramid_pnet``) in one
-launch, every NMS is K3 (``ops.nms``), the 24 and 48 px crops are K4
-(``ops.crop``: one integral image per chunk, one pool per stage) and the
-RNet/ONet trunks are K5 (``ops.crops_net``).
+K4 (``ops.crop``) builds one integral image per chunk; stage 1 reads every
+pyramid level of every frame from it through K2 (``ops.pyramid_pnet``) in
+one launch, every NMS is K3 (``ops.nms``), the 24 and 48 px crops are K4's
+pools (one per stage) and the RNet/ONet trunks are K5
+(``ops.crops_net``).
 
 The host API (``detect``, ``inference``, ``select_boxes``, ``extract``,
 ``__call__``, ``extract_face``) takes numpy frames or lists of them, as
@@ -204,8 +205,9 @@ class MTCNN:
     """Batched MTCNN detector: every face of a frame, up to ``out_cap``.
 
     Constructor arguments mirror the JAX package's ``MTCNN``; ``dtype``
-    is the compute dtype of RNet/ONet (stage 1 is always f32) and
-    ``device`` where the nets live: the card unless ``"cpu"`` is asked
+    is the compute dtype of all three stages (stage 1 included, as the
+    JAX package's; box math and scores stay f32) and ``device`` where the
+    nets live: the card unless ``"cpu"`` is asked
     for (a missing card raises). ``image_size``, ``margin``,
     ``post_process``, ``select_largest``, ``selection_method`` and
     ``keep_all`` shape the host API's selection and face extraction.
@@ -322,15 +324,16 @@ class MTCNN:
         k1, kx = caps["pnet_cap_per_scale"], caps["cross_cap"]
         k2, k3, kout = caps["rnet_cap"], caps["onet_cap"], caps["out_cap"]
         thr = self.thresholds
-        imgs = frames.to(torch.float32)
-        integ = integral_image(frames)  # K4: shared by both crop stages
-        dev = imgs.device
+        # K4: the integral image, shared by stage 1 and both crop stages
+        integ = integral_image(frames)
+        dev = frames.device
         sat_s1 = torch.zeros((), dtype=torch.int32, device=dev)
 
         # ---- stage 1: pyramid + PNet (K2) + per-scale NMS(0.5) ----
         scales = self._scales(h, w)
         sizes = [(int(h * s + 1), int(w * s + 1)) for s in scales]
-        maps = pyramid_pnet(self.pnet, imgs, sizes)
+        maps = pyramid_pnet(self.pnet, frames, sizes, integ=integ,
+                            dtype=self.dtype)
         per_scale = []
         for scale, (probs1, reg) in zip(scales, maps):
             boxes, score, reg, valid = _stage1_boxes(probs1, reg, scale,

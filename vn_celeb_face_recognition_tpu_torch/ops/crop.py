@@ -8,10 +8,13 @@ torch's ``adaptive_avg_pool2d`` does, bit-exact on uint8 pixels.
 
 Both versions read an int32 integral image with four corner reads per
 output cell. ``integral_image`` builds it (two launches of
-``csrc/crop_area_pool.cu`` for CUDA tensors, ``torch.cumsum`` for CPU
-tensors); the cascade builds it once per chunk and hands it to both crop
-stages. ``grouped_crop_area_resize`` computes the cell bounds here in f32,
-as the reference does, and pools (one launch for CUDA tensors).
+``csrc/crop_area_pool.cu`` for CUDA tensors: band totals, then one scan
+that writes each entry once; ``torch.cumsum`` for CPU tensors); the
+cascade builds it once per chunk and hands it to PNet's pyramid (K2) and
+both crop stages. ``crop_area_pool`` pools: the plain version computes the
+cell bounds here in f32, as the reference does (``pool_tables``); the
+kernel (one launch for CUDA tensors) computes the same f32 arithmetic
+itself from the boxes.
 
 Frames of any size are taken. The prefix sums wrap modulo 2**32 (a
 frame of more than 8,421,504 pixels overflows int32), and the four-corner
@@ -26,6 +29,8 @@ import ctypes
 import torch
 
 from ..utils import kernels
+
+BAND = 64  # rows a band of the integral-image scan (csrc kBand)
 
 
 def wrap_int32(t):
@@ -87,8 +92,9 @@ def integral_image_plain(images):
 
 
 def integral_image_kernel(images):
-    """The same prefix sums from the CUDA kernel's two launches (CUDA
-    tensors; uint8, or uint8-valued floats that are rounded first)."""
+    """The same prefix sums from the CUDA kernel's two launches, band
+    totals and the band scan (CUDA tensors; uint8, or uint8-valued floats
+    that are rounded first)."""
     _check_frames(images)
     if images.dtype != torch.uint8:
         images = torch.round(images.to(torch.float32)).to(torch.uint8)
@@ -97,13 +103,18 @@ def integral_image_kernel(images):
     b, h, w, _ = images.shape
     integ = torch.empty((b, h + 1, w + 1, 3), dtype=torch.int32,
                         device=images.device)
-    if b == 0:
-        return integ
+    if b == 0 or h == 0 or w == 0:
+        return integ.zero_()
+    # the band totals: every band's but the last (one for a one-band frame)
+    bands = -(-h // BAND)
+    totals = torch.empty(b * max(bands - 1, 1) * w * 3, dtype=torch.int32,
+                         device=images.device)
     lib = kernels.library()
     stream = torch.cuda.current_stream(images.device).cuda_stream
     launched = ctypes.c_int(0)
-    err = lib.vn_integral_image(images.data_ptr(), integ.data_ptr(), b, h, w,
-                                stream, ctypes.byref(launched))
+    err = lib.vn_integral_image(images.data_ptr(), integ.data_ptr(),
+                                totals.data_ptr(), b, h, w, stream,
+                                ctypes.byref(launched))
     kernels.count_launch("crop_area_resize", launched.value)
     kernels.check_cuda(err, "vn_integral_image")
     return integ
@@ -162,24 +173,25 @@ def crop_area_pool_plain(integ, boxes, size):
 
 
 def crop_area_pool_kernel(integ, boxes, size):
-    """The same pool from one launch of the CUDA kernel (CUDA tensors
+    """The same pool from one launch of the CUDA kernel, which computes
+    the cell bounds of ``pool_tables`` from the boxes itself (CUDA tensors
     only)."""
     _check_boxes(integ, boxes)
     b, k = boxes.shape[:2]
     h, w = integ.shape[1] - 1, integ.shape[2] - 1
     integ = integ.contiguous()
     kernels.require_cuda_tensor(integ, "integ", torch.int32)
-    kernels.require_cuda_tensor(boxes.contiguous(), "boxes")
-    (y0, y1, x0, x1), (wy, wx) = pool_tables(boxes, size, h, w)
-    tables = [t.contiguous() for t in (y0, y1, x0, x1, wy, wx)]
+    boxes = boxes.to(torch.float32).contiguous()
+    kernels.require_cuda_tensor(boxes, "boxes")
+    if boxes.data_ptr() % 16:  # the kernel reads a box as one float4
+        boxes = boxes.clone()
     out = torch.empty((b, k, size, size, 3), dtype=torch.float32,
                       device=integ.device)
     if b * k == 0:
         return out
     lib = kernels.library()
     stream = torch.cuda.current_stream(integ.device).cuda_stream
-    err = lib.vn_crop_area_pool(integ.data_ptr(),
-                                *[t.data_ptr() for t in tables],
+    err = lib.vn_crop_area_pool(integ.data_ptr(), boxes.data_ptr(),
                                 out.data_ptr(), b, k, h, w, size, stream)
     kernels.check_cuda(err, "vn_crop_area_pool")
     kernels.count_launch("crop_area_resize")

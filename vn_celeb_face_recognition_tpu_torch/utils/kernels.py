@@ -44,8 +44,10 @@ SIGNATURES = {
     # mats, src_u8, out boxes, K, win, out_size, stream (a check of K1's
     # box rule, not a step of the warp)
     "vn_similarity_warp_boxes": [_P, _I, _P, _I, _I, _I, _P],
-    # levels, table, weights, probs, reg, n_levels, n_tiles, stream
-    "vn_pnet_chain": [_P, _P, _P, _P, _P, _I, _I, _P],
+    # integ, small parameters (host), level table (host), weights, probs,
+    # reg, B, H, W, n_levels, tiles_per_frame, mma, stream
+    "vn_pyramid_pnet": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                        _P],
     # frames, weights, out, scratch1, scratch2, B, H, W, out_bf16, stream,
     # launches
     "vn_mnet_stage1": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _NP],
@@ -57,11 +59,10 @@ SIGNATURES = {
                             _I, _I, _I, _I, _I, _I, _P, _NP],
     # boxes, scores, valid, keep, N, K, iou_thr, offset, min_mode, stream
     "vn_nms_keep_mask": [_P, _P, _P, _P, _I, _I, _F, _F, _I, _P],
-    # frames, integ, B, H, W, stream, launches
-    "vn_integral_image": [_P, _P, _I, _I, _I, _P, _NP],
-    # integ, y0, y1, x0, x1, wy, wx, out, B, K, H, W, S, stream
-    "vn_crop_area_pool": [_P, _P, _P, _P, _P, _P, _P, _P,
-                          _I, _I, _I, _I, _I, _P],
+    # frames, integ, totals, B, H, W, stream, launches
+    "vn_integral_image": [_P, _P, _P, _I, _I, _I, _P, _NP],
+    # integ, boxes, out, B, K, H, W, S, stream
+    "vn_crop_area_pool": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
     # crops, weights, out, N, net (0 RNet, 1 ONet), bf16, stream
     "vn_crop_net_trunk": [_P, _P, _P, _I, _I, _I, _P],
 }
