@@ -36,7 +36,11 @@ Phases, one line of output each (a failed phase exits non-zero):
       frame pixels that overlapping windows share count once);
    5. K3 (nms_keep_mask) keep masks equal to the plain fixpoint at six
       shapes (stock per-scale, cross-scale, ONet stage, RetinaFace, one
-      set of 4,096, all-equal scores);
+      set of 4,096, all-equal scores), one set of MAX_K = 7,680, sets
+      with nv in {0, 1, 31, 32, 33, 65} and with +-0.0, +-inf and NaN
+      scores, and at every shape the three lines launch, each with its
+      sets in priority order (as ops.boxes.top_k_select hands them over)
+      and not; every line shape timed both ways beside its bound;
    6. K4 (crop_area_resize: the integral image in two grids, band totals
       and one scan that writes each entry once, and pools that compute
       their own cell bounds) bit-exact to the plain integral-image crops
@@ -48,7 +52,8 @@ Phases, one line of output each (a failed phase exits non-zero):
       and ONet timed apart with their TFLOP/s and GB/s;
    8. the default slice: chunks with launch counters reset just before
       and read just after, held to exact per-run counts;
-   9. its profile: device busy time of one chunk under torch.profiler;
+   9. its profile: device busy time of one chunk under torch.profiler,
+      and each kernel's device time and grids in that chunk;
   10. its card vs CPU: the same engine in f32 on a 2-frame chunk;
   11. the stock slice, counters held the same way;
   12. its profile;
@@ -117,10 +122,10 @@ KERNEL_SOURCES = {
 KERNEL_GRIDS = {
     "pnet_chain": ("pnet_frames_f32", "pnet_frames_mma"),
     "similarity_warp": ("similarity_warp_kernel",),
-    "mnet_stage1": ("segment_kernel", "segment_mma"),
+    "mnet_stage1": ("segment_kernel", "segment_mma_first", "segment_mma"),
     "emotion_stem": ("emotion_stem_kernel", "emotion_stem_mma"),
     "bottleneck_chain": ("conv_gemm_bf16",),
-    "nms_keep_mask": ("nms_keep_kernel",),
+    "nms_keep_mask": ("nms_keep_tiled",),
     "crop_area_resize": ("band_totals_kernel", "band_scan_kernel",
                          "crop_pool_kernel"),
     "crop_net_trunk": ("crop_net_trunk_mma",),
@@ -141,6 +146,20 @@ BIG_H, BIG_W = 3024, 4032
 MTCNN_LINE_LAUNCHES = {"pnet_chain": 1, "nms_keep_mask": 4,
                        "crop_area_resize": 4, "crop_net_trunk": 2,
                        "similarity_warp": 1}
+# K3's launches on each line: (line, NMS, sets, boxes a set, thr, offset,
+# min_mode). The per-scale and cross-scale sets and RetinaFace's come out
+# of a top-k in priority order; the RNet and ONet sets do not.
+K3_SHAPES = [
+    ("default", "per-scale", 512, 128, 0.5, 0.0, False),
+    ("default", "cross-scale", 64, 256, 0.7, 0.0, False),
+    ("default", "RNet", 64, 64, 0.7, 0.0, False),
+    ("default", "ONet", 64, 32, 0.7, 1.0, True),
+    ("stock", "per-scale", 1408, 448, 0.5, 0.0, False),
+    ("stock", "cross-scale", 128, 512, 0.7, 0.0, False),
+    ("stock", "RNet", 128, 256, 0.7, 0.0, False),
+    ("stock", "ONet", 128, 128, 0.7, 1.0, True),
+    ("production", "RetinaFace", 128, 1024, 0.4, 1.0, False),
+]
 # default bench line
 DETECTOR = dict(min_face_size=50, pnet_cap_per_scale=128,
                 cross_cap=256, rnet_cap=64, onet_cap=32, out_cap=8)
@@ -209,6 +228,13 @@ def median_ms(torch, fn, runs=20, warmup=3):
     return sorted(times)[len(times) // 2]
 
 
+def is_grid(key, names):
+    """Whether the profiler's kernel name ``key`` (demangled or mangled) is
+    one of the device functions ``names``, matched as a whole name."""
+    return any(re.search(rf"(?:^|[^A-Za-z_]){re.escape(n)}(?:[<(IE]|$)",
+                         key) for n in names)
+
+
 def device_ms(torch, fn, names=(), runs=20):
     """Device time (ms) per call of ``fn()`` spent in the device functions
     whose name contains one of ``names`` (every one when it is empty), from
@@ -226,7 +252,7 @@ def device_ms(torch, fn, names=(), runs=20):
     events = [e for e in prof.key_averages()
               if e.device_type == DeviceType.CUDA]
     total = sum(e.self_device_time_total for e in events
-                if not names or any(n in e.key for n in names))
+                if not names or is_grid(e.key, names))
     if total <= 0:
         fail(f"torch.profiler recorded no device time for {names or 'fn'}; "
              f"it saw {sorted({e.key[:80] for e in events})}")
@@ -483,7 +509,11 @@ def drive(torch, kernels, engine, chunks, n, names):
     return times, valid_counts, counts, runs[0], out, res
 
 
-def profile_chunk(torch, engine, frames, names, chunk_ms, card, what):
+def profile_chunk(torch, engine, frames, names, chunk_ms, card, what,
+                  line, results):
+    """Device busy time of one chunk under torch.profiler, and each
+    kernel's device time and grids in it (added to its row as
+    ``chunk_device_ms[line]``)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -496,14 +526,23 @@ def profile_chunk(torch, engine, frames, names, chunk_ms, card, what):
     # device-side events only (the CPU ops that launched them repeat the
     # same time); everything runs on one stream, so their sum is the busy
     # time
-    busy_ms = sum(e.self_device_time_total for e in averages
-                  if e.device_type == DeviceType.CUDA) / 1e3
+    device = [e for e in averages if e.device_type == DeviceType.CUDA]
+    busy_ms = sum(e.self_device_time_total for e in device) / 1e3
     if busy_ms <= 0.0:
         fail("torch.profiler recorded no device time")
     print(averages.table(sort_by="self_device_time_total", row_limit=25))
+    parts = []
+    for kname, grids in KERNEL_GRIDS.items():
+        mine = [e for e in device if is_grid(e.key, grids)]
+        if mine:
+            ms = sum(e.self_device_time_total for e in mine) / 1e3
+            results[kname].setdefault("chunk_device_ms", {})[line] = ms
+            parts.append(f"{kname} {ms:.4f} ms in "
+                         f"{sum(e.count for e in mine)} grids")
     phase(what, f"one chunk: device busy {busy_ms:.2f} ms = "
           f"{busy_ms / chunk_ms:.1%} of the median chunk {chunk_ms:.2f} ms "
-          f"(device idle {1 - busy_ms / chunk_ms:.1%}; {card})")
+          f"(device idle {1 - busy_ms / chunk_ms:.1%}; {card}); kernels: "
+          + "; ".join(parts))
     return busy_ms
 
 
@@ -545,31 +584,81 @@ def nms_iou_tests(torch, boxes, scores, valid, keep, thr, offset, min_mode):
     return int((ahead & (rank[:, :, None] <= first[:, None, :])).sum())
 
 
+def in_priority_order(torch, boxes, scores, valid):
+    """The sets as a top-k hands them to K3 on the lines: valid rows first
+    by descending score, ties in row order (ops.boxes.top_k_select)."""
+    from vn_celeb_face_recognition_tpu_torch.ops.boxes import top_k_select
+
+    idx, still = top_k_select(scores, valid, scores.shape[1])
+    return (torch.gather(boxes, 1, idx[..., None].expand(-1, -1, 4)),
+            torch.gather(scores, 1, idx), still)
+
+
+def nv_edge_sets(torch, gen, k, dev):
+    """Sets of ``k`` clustered boxes with exactly 0, 1, 31, 32, 33 and 65
+    valid rows (tile edges of the greedy scan)."""
+    boxes, scores, _ = nms_sets(torch, gen, 6, k, SIZE, dev)
+    valid = np.zeros((6, k), bool)
+    for s, nv in enumerate((0, 1, 31, 32, 33, 65)):
+        valid[s, gen.permutation(k)[:nv]] = True
+    return boxes, scores, torch.from_numpy(valid).to(dev)
+
+
+def special_scores(torch, gen, scores):
+    """``scores`` replaced by draws from -0.0, +0.0, +-inf, NaN and two
+    finite values: ties across the sign of zero."""
+    special = np.float32([-0.0, 0.0, np.inf, -np.inf, np.nan, 0.5, -0.5])
+    pick = gen.integers(0, len(special), tuple(scores.shape))
+    return torch.from_numpy(special[pick]).to(scores.device)
+
+
 def phase_k3(torch, kernels, K3, dev, card, results):
     """K3 keep masks equal to the plain version at the cascade's, the ONet
-    stage's and RetinaFace's shapes, one set of 4,096 and all-equal
-    scores; timed at the stock per-scale shape."""
+    stage's and RetinaFace's shapes, one set of 4,096, all-equal scores,
+    one set of MAX_K, the scan's tile edges, special scores, and every
+    line shape in and out of priority order; timed at the stock per-scale
+    shape against the plain version, and at every line shape both ways
+    beside its bound."""
     gen = np.random.default_rng(10)
     cases = [("stock per-scale", 1408, 448, 0.5, 0.0, False),
              ("cross-scale", 128, 512, 0.7, 0.0, False),
              ("ONet stage", 128, 128, 0.7, 1.0, True),
              ("RetinaFace", 128, 1024, 0.4, 1.0, False),
              ("one set", 1, 4096, 0.5, 0.0, False),
-             ("all-equal scores", 64, 448, 0.5, 0.0, False)]
+             ("all-equal scores", 64, 448, 0.5, 0.0, False),
+             ("one set of MAX_K", 1, K3.MAX_K, 0.5, 0.0, False),
+             ("nv 0/1/31/32/33/65", 6, 96, 0.5, 0.0, False),
+             ("+-0.0, +-inf, NaN scores", 64, 448, 0.5, 0.0, False),
+             ("+-0.0, +-inf, NaN scores in order", 64, 448, 0.5, 0.0,
+              False)]
     parts, timed_set = [], None
-    for what, n, k, thr, off, mm in cases:
-        boxes, scores, valid = nms_sets(torch, gen, n, k, SIZE, dev)
-        if what == "all-equal scores":
-            scores = torch.full_like(scores, 0.5)
+
+    def check(what, boxes, scores, valid, thr, off, mm):
         got = through_kernel(kernels, "nms_keep_mask",
                              lambda: K3.nms_keep_mask(boxes, scores, valid,
                                                       thr, off, mm))
         want = K3.nms_keep_mask_plain(boxes, scores, valid, thr, off, mm)
+        n, k = scores.shape
         if not torch.equal(got, want):
             fail(f"K3 {what} {n}x{k}: {int((got != want).sum())} keep flags "
                  "differ from the plain version")
-        parts.append(f"{what} {n}x{k} @{thr} off {off:g} min {mm}: "
+        return got, (f"{what} {n}x{k} @{thr} off {off:g} min {mm}: "
                      f"{int(got.sum())} kept of {int(valid.sum())}")
+
+    for what, n, k, thr, off, mm in cases:
+        if what.startswith("nv "):
+            boxes, scores, valid = nv_edge_sets(torch, gen, k, dev)
+        else:
+            boxes, scores, valid = nms_sets(torch, gen, n, k, SIZE, dev)
+        if what == "all-equal scores":
+            scores = torch.full_like(scores, 0.5)
+        elif what.startswith("+-0.0"):
+            scores = special_scores(torch, gen, scores)
+            if what.endswith("in order"):
+                boxes, scores, valid = in_priority_order(torch, boxes,
+                                                         scores, valid)
+        got, part = check(what, boxes, scores, valid, thr, off, mm)
+        parts.append(part)
         if timed_set is None:
             timed_set = (boxes, scores, valid, got, thr)
     boxes, scores, valid, keep, thr = timed_set
@@ -582,15 +671,49 @@ def phase_k3(torch, kernels, K3, dev, card, results):
     # 22 bytes a box (boxes, score, valid in; keep out); ~15 f32 operations
     # an IoU test
     bound_ms, bound_by = bound(scores.numel() * 22, tests * 15, PEAK_F32)
-    results["nms_keep_mask"] = dict(max_abs_err=0.0, ms=ms, call_ms=call_ms,
-                                    plain_ms=plain_ms, bound_ms=bound_ms,
-                                    bound_by=bound_by, library_ms=None)
     phase("K3", "nms_keep_mask keep masks equal (torch.equal): "
           + "; ".join(parts) + f". Timed at 1408x448: kernel {ms:.4f} ms, "
           f"call {call_ms:.4f} ms, plain {plain_ms:.3f} ms, bound "
           f"{bound_ms:.4f} ms ({bound_by}; {tests} IoU tests); library none "
           f"(no single PyTorch call computes a batched greedy keep mask) "
           f"({TIMING}; {card})")
+
+    # every line shape, with its sets in priority order and not
+    gen = np.random.default_rng(13)
+    shapes, lines = {}, []
+    for line, nms, n, k, thr, off, mm in K3_SHAPES:
+        raw = nms_sets(torch, gen, n, k, SIZE, dev)
+        row = {}
+        for order, sets in (("in_order", in_priority_order(torch, *raw)),
+                            ("unordered", raw)):
+            bx, sc, vl = sets
+            got, _ = check(f"{line} {nms} {order}", bx, sc, vl, thr, off, mm)
+            t_ms = device_ms(torch, lambda: K3.nms_keep_mask(bx, sc, vl, thr,
+                                                             off, mm),
+                             KERNEL_GRIDS["nms_keep_mask"])
+            tests = nms_iou_tests(torch, bx, sc, vl, got, thr, off, mm)
+            b_ms, b_by = bound(sc.numel() * 22, tests * 15, PEAK_F32)
+            row[order] = dict(ms=t_ms, bound_ms=b_ms, bound_by=b_by,
+                              iou_tests=tests, kept=int(got.sum()),
+                              valid=int(vl.sum()))
+        shapes[f"{line} {nms} {n}x{k}"] = row
+        lines.append(
+            f"{line} {nms} {n}x{k} @{thr} off {off:g} min {mm}: in order "
+            f"{row['in_order']['ms']:.4f} ms, unordered "
+            f"{row['unordered']['ms']:.4f} ms, bound "
+            f"{row['unordered']['bound_ms']:.6f} ms "
+            f"({row['unordered']['bound_by']}; "
+            f"{row['unordered']['iou_tests']} IoU tests; "
+            f"{row['unordered']['kept']} kept of "
+            f"{row['unordered']['valid']})")
+    phase("K3-shapes", "nms_keep_mask at the lines' launch shapes, keep "
+          "masks equal both ways (kernel device time, torch.profiler, mean "
+          f"of 20 calls; {card}): " + "; ".join(lines))
+    results["nms_keep_mask"] = dict(
+        max_abs_err=0.0, ms=ms, call_ms=call_ms, plain_ms=plain_ms,
+        bound_ms=bound_ms, bound_by=bound_by, library_ms=None,
+        ms_in_order=shapes["stock per-scale 1408x448"]["in_order"]["ms"],
+        shapes=shapes)
 
 
 def phase_k4(torch, kernels, K4, frames, big, pasted, card, results):
@@ -1322,7 +1445,8 @@ def main():
         fail(f"too few faces detected: {valid_counts}")
 
     # ---- 9. profile ---------------------------------------------------
-    profile_chunk(torch, engine, chunks[0], names, chunk_ms, card, "profile")
+    profile_chunk(torch, engine, chunks[0], names, chunk_ms, card, "profile",
+                  "default", results)
 
     # ---- 10. card vs CPU -----------------------------------------------
     mtcnn_card_vs_cpu(torch, FusedRecognitionEngine, MTCNN, DETECTOR,
@@ -1360,7 +1484,7 @@ def main():
 
     # ---- 12. its profile -----------------------------------------------
     profile_chunk(torch, engine, chunks[0], names, chunk_ms, card,
-                  "stock-profile")
+                  "stock-profile", "stock", results)
     del engine, chunks, out
 
     # ---- 13. stock card vs CPU -----------------------------------------
@@ -1534,7 +1658,7 @@ def main():
 
     # ---- 19. profile ---------------------------------------------------
     profile_chunk(torch, engine, chunks[0], names, chunk_ms, card,
-                  "production-profile")
+                  "production-profile", "production", results)
     del engine, chunks, out, res
 
     # ---- 20. production card vs CPU ------------------------------------

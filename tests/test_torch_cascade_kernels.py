@@ -77,64 +77,228 @@ def test_nms_keep_mask_matches_pallas_and_xla(offset, min_mode, thr):
 
 
 def _iou_gt(a, b, off, min_mode, thr):
-    """The kernel's IoU test in f32, operation by operation."""
+    """The kernel's IoU test in f32, operation by operation. Its two
+    screens are checked against the IEEE division on every call: an empty
+    intersection decides without it, and so does any quotient within
+    2^-22 (2 ulp) of the exact one that lies outside thr (1 +- 2^-20)."""
     f = np.float32
-    off = f(off)
+    off, thr = f(off), f(thr)
     area_a = (f(a[2] - a[0]) + off) * (f(a[3] - a[1]) + off)
     area_b = (f(b[2] - b[0]) + off) * (f(b[3] - b[1]) + off)
     w = max(f(f(min(a[2], b[2]) - max(a[0], b[0])) + off), f(0))
     h = max(f(f(min(a[3], b[3]) - max(a[1], b[1])) + off), f(0))
     inter = f(w * h)
-    denom = min(area_a, area_b) if min_mode else f(f(area_a + area_b) - inter)
-    return f(inter / max(denom, f(1e-12))) > f(thr)
+    denom = max(min(area_a, area_b) if min_mode else f(f(area_a + area_b)
+                                                         - inter), f(1e-12))
+    exact = f(inter / denom) > thr
+    if inter == 0:
+        assert exact == (f(0) > thr)
+    elif 2.0 ** -100 <= thr <= 2.0 ** 100 and denom < 2.0 ** 100:
+        lo, hi = f(thr * f(1 - 2.0 ** -20)), f(thr * f(1 + 2.0 ** -20))
+        q = float(inter) / float(denom)
+        for approx in (q * (1 - 2.0 ** -22), q * (1 + 2.0 ** -22)):
+            assert not (approx > hi and not exact)
+            assert not (approx < lo and exact)
+    return exact
+
+
+def _descending_bits(s):
+    """The kernel's key bits of non-NaN f32 scores: descending as unsigned
+    integers, -0.0 counted as +0.0."""
+    u = np.where(s == 0, np.float32(0), s).astype(np.float32).view(np.uint32)
+    return np.where(u & 0x80000000, u, ~(u | 0x80000000)).astype(np.uint32)
+
+
+def _bitonic_sort(key):
+    """The kernel's sort, step by step: a bitonic network whose comparators
+    all put the smaller key first, over the next power of two of nv =
+    len(key); slots from nv on count as +inf and are never touched."""
+    key, nv = key.copy(), len(key)
+    span = 1
+    while span < nv:
+        span *= 2
+    i = np.arange(span // 2)
+
+    def order(lo, hi):
+        lo, hi = lo[hi < nv], hi[hi < nv]
+        a, b = key[lo], key[hi]
+        swap = a > b
+        key[lo[swap]], key[hi[swap]] = b[swap], a[swap]
+
+    size = 2
+    while size <= span:
+        j = i & (size // 2 - 1)
+        lo = (i - j) * 2 + j
+        order(lo, lo + size - 1 - 2 * j)  # the mirror in each block
+        stride = size // 4
+        while stride:
+            lo = 2 * i - (i & (stride - 1))
+            order(lo, lo + stride)
+            stride //= 2
+        size *= 2
+    return key
 
 
 def _nms_emulated(boxes, scores, valid, thr, off, min_mode):
-    """csrc/nms_keep.cu for one set: ranks among the valid, non-NaN boxes
-    (score descending, ties to the lower row), then the greedy scan over
-    ranks; a valid box with a NaN score is kept and compared with none."""
-    k = len(scores)
-    ordered = valid & ~np.isnan(scores)
-    rank = np.zeros(k, np.int64)
-    for i in np.nonzero(ordered)[0]:
-        j = np.nonzero(ordered)[0]
-        rank[i] = np.sum((scores[j] > scores[i])
-                         | ((scores[j] == scores[i]) & (j < i)))
-    nv = int(ordered.sum())
-    by_rank = np.zeros((nv, 4), np.float32)
-    by_rank[rank[ordered]] = boxes[ordered]
+    """csrc/nms_keep.cu for one set, phase by phase. Returns (keep, whether
+    the set was sorted)."""
+    def hit(kept, r):
+        return _iou_gt(sbox[kept], sbox[r], off, min_mode, thr)
+
+    # 1. compact the valid, non-NaN rows in row order (the block prefix sum)
+    rows = np.nonzero(valid & ~np.isnan(scores))[0]
+    nv = len(rows)
+    key = ((_descending_bits(scores[rows]).astype(np.uint64) << np.uint64(32))
+           | rows.astype(np.uint64))
+    # 2. the order check; the sort only when the score bits rise somewhere
+    disorder = bool(np.any((key[:-1] >> np.uint64(32))
+                           > (key[1:] >> np.uint64(32))))
+    if disorder:
+        key = _bitonic_sort(key)
+        np.testing.assert_array_equal(key, np.sort(key))
+    row = (key & np.uint64(0xFFFFFFFF)).astype(np.int64)
+    sbox = boxes[row]
     sup = np.zeros(nv, bool)
-    for r in range(nv):
-        if sup[r]:
-            continue
-        for q in range(r + 1, nv):
-            if not sup[q] and _iou_gt(by_rank[r], by_rank[q], off, min_mode,
-                                      thr):
-                sup[q] = True
-    keep = valid.copy()
-    keep[ordered] = ~sup[rank[ordered]]
-    return keep
+
+    # 3. tiles of 32 ranks. Up front, each rank's mask of the earlier
+    # ranks in its tile whose box would suppress its own
+    mask = [{e for e in range(32 * (r // 32), r) if hit(e, r)}
+            for r in range(nv)]
+
+    # warp 0 settles a tile: the lowest live lane is kept and drops the
+    # lanes whose mask holds it (the ballot loop)
+    def resolve(u):
+        alive = [r for r in range(32 * u, min(32 * u + 32, nv)) if not sup[r]]
+        rem, kept = list(alive), []
+        while rem:
+            f = rem.pop(0)
+            kept.append(f)
+            rem = [r for r in rem if f not in mask[r]]
+        for r in alive:
+            sup[r] = r not in kept
+        return kept
+
+    # then the block tests every live later rank against the tile's kept
+    # boxes, four at a time, up to the first group of four with a hit
+    tiles = -(-nv // 32)
+    kept = resolve(0) if tiles else []
+    for u in range(tiles - 1):
+        more = False
+        for q in range(32 * (u + 1), nv):
+            if sup[q]:
+                continue
+            for g in range(0, len(kept), 4):
+                if any([hit(j, q) for j in kept[g:g + 4]]):
+                    sup[q] = True
+                    break
+            more |= not sup[q] and q >= 32 * (u + 2)
+        kept = resolve(u + 1)
+        if not more:  # every rank after tile u + 1 suppressed
+            break
+    keep = valid.copy()  # rows out of the order: invalid, or kept (NaN)
+    keep[row] = ~sup
+    return keep, disorder
 
 
-@pytest.mark.parametrize("case", ["ties", "nan", "dense"])
-def test_nms_rank_and_greedy_scan_emulation(case):
-    """The kernel's rank count and greedy scan (emulated in numpy) give the
-    plain fixpoint's keep set, with NaN scores and in dense clusters."""
-    gen = np.random.default_rng({"ties": 11, "nan": 12, "dense": 13}[case])
-    k = 70
-    hi = 30.0 if case == "dense" else 100.0
-    boxes = _boxes(gen, (2, k), hi=hi)
-    scores = gen.integers(0, 6, (2, k)).astype(np.float32) / 5
+def _in_priority_order(scores, valid):
+    """Each set's rows as a top-k hands them over: valid rows first by
+    descending score (ties in row order), then the rest."""
+    return np.argsort(-np.where(valid, scores, -np.inf), axis=-1,
+                      kind="stable")
+
+
+def _threshold_set(gen, k):
+    """Pairs whose IoU is exactly the threshold (0.5 for off 0: boxes 2x1
+    and 1x1 at one corner; 0.7 for off 1 in min mode: intersection 7 over
+    the smaller area 10), copies nudged one ulp over and under, at integer
+    offsets, in random order."""
+    pairs = []
+    for n in range(k // 2):
+        x, y = 5.0 * (n % 8), 5.0 * (n // 8)
+        if n % 2:
+            a, b = [x, y, x + 2, y + 1], [x, y, x + 1, y + 1]
+        else:
+            a, b = [x, y, x + 9, y], [x + 3, y, x + 12, y]
+        nudge = (n // 2) % 3  # exact, one ulp over, one ulp under
+        if nudge:
+            b[2] = np.nextafter(np.float32(b[2]), np.float32(
+                np.inf if nudge == 1 else -np.inf))
+        pairs += [a, b]
+    boxes = np.asarray(pairs, np.float32)[gen.permutation(k)]
+    return boxes
+
+
+_NMS_CASES = ["ties", "nan", "dense", "signed_zero_inf", "in_order",
+              "nv_edges", "threshold"]
+
+
+def _nms_case(case):
+    gen = np.random.default_rng(11 + _NMS_CASES.index(case))
+    n, k = (6, 80) if case == "nv_edges" else (3, 70)
+    hi = 30.0 if case in ("dense", "nv_edges", "signed_zero_inf") else 100.0
+    boxes = _boxes(gen, (n, k), hi=hi)
+    scores = (gen.integers(0, 6, (n, k)) / 5).astype(np.float32)
+    valid = gen.uniform(size=(n, k)) < 0.9
     if case == "nan":
         scores[:, ::9] = np.nan
-    valid = gen.uniform(size=(2, k)) < 0.9
-    for off, mm, thr in ((0.0, False, 0.5), (1.0, True, 0.7)):
+    elif case == "signed_zero_inf":
+        special = np.float32([-0.0, 0.0, np.inf, -np.inf, 0.25, -0.25,
+                              np.nan])
+        scores = special[gen.integers(0, len(special), (n, k))]
+        # a set in row order whose zeros alternate in sign: ties
+        scores[2] = np.sort(scores[2])[::-1]
+        scores[2, np.isnan(scores[2])] = np.inf
+        zero = np.nonzero(scores[2] == 0)[0]
+        scores[2, zero[::2]] = -0.0
+        valid[2] = True
+    elif case == "nv_edges":
+        valid[:] = False
+        for s, nv in enumerate((0, 1, 31, 32, 33, 65)):
+            valid[s, gen.permutation(k)[:nv]] = True
+    elif case == "threshold":
+        boxes = np.stack([_threshold_set(gen, k) for _ in range(n)])
+        scores = gen.permutation(n * k).reshape(n, k).astype(np.float32)
+    if case in ("in_order", "nv_edges"):
+        for s in range(0, n, 1 if case == "in_order" else 2):
+            idx = _in_priority_order(scores[s], valid[s])
+            boxes[s], scores[s], valid[s] = (boxes[s][idx], scores[s][idx],
+                                             valid[s][idx])
+    return boxes, scores, valid
+
+
+@pytest.mark.parametrize("case", _NMS_CASES)
+def test_nms_rank_and_greedy_scan_emulation(case):
+    """The kernel's phases (compaction, the order check or the bitonic sort
+    by key, the greedy scan in tiles of 32 with its tile masks, warp
+    resolve and block apply, the IoU screens), emulated in numpy, give the plain fixpoint's keep set: with
+    ties, NaN, -0.0/+0.0 and +-inf scores, dense clusters, sets in and out
+    of priority order, nv in {0, 1, 31, 32, 33, 65}, and boxes at the IoU
+    threshold."""
+    boxes, scores, valid = _nms_case(case)
+    sorted_sets = []
+    for off, mm, thr in ((0.0, False, 0.5), (1.0, True, 0.7),
+                         (1.0, False, 0.4)):
         want = K3.nms_keep_mask_plain(_t(boxes), _t(scores), _t(valid), thr,
                                       off, mm).numpy()
-        for s in range(2):
-            got = _nms_emulated(boxes[s], scores[s], valid[s], thr, off, mm)
-            np.testing.assert_array_equal(got, want[s])
-    assert K3.MAX_K * 30 <= 232448  # the kernel's shared memory per box
+        for s in range(len(scores)):
+            got, sorted_set = _nms_emulated(boxes[s], scores[s], valid[s],
+                                            thr, off, mm)
+            np.testing.assert_array_equal(got, want[s], err_msg=f"set {s}")
+            sorted_sets.append(sorted_set)
+    if case == "in_order":
+        assert not any(sorted_sets)  # the top-k's order needs no sort
+    elif case in ("ties", "nan", "dense", "threshold"):
+        assert all(sorted_sets)
+    elif case == "signed_zero_inf":
+        assert sorted_sets[2::3] == [False] * 3  # -0.0 ties +0.0
+    if case == "threshold":  # the exact-threshold pairs are all kept
+        pair = K3.nms_keep_mask_plain(
+            _t(np.float32([[[0, 0, 2, 1], [0, 0, 1, 1]]])),
+            _t(np.float32([[1, 0]])), _t(np.ones((1, 2), bool)), 0.5)
+        assert pair.all()
+    # box, key (then row + area), tile mask, suppressed flag, plus the
+    # tile buffers
+    assert K3.MAX_K * (16 + 8 + 4 + 1) + 772 <= 232448
 
 
 # ---------------------------------------------------------------------------

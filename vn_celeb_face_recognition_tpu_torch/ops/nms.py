@@ -4,9 +4,19 @@ Counterpart of ``vn_celeb_face_recognition_tpu/ops/nms_pallas.py``
 (``nms_keep_mask_pallas``) and of the XLA ``ops/boxes.batched_nms_keep_mask``
 the JAX cascade runs. Every NMS of the port (the cascade's four and
 RetinaFace's) goes through ``nms_keep_mask``: for CUDA tensors it is one
-launch of ``csrc/nms_keep.cu`` (one thread block per set, a rank count
-and a greedy scan in shared memory, no host sync); for CPU tensors it is
+launch of ``csrc/nms_keep.cu``, no host sync; for CPU tensors it is
 ``nms_keep_mask_plain``, the fixpoint sweeps below.
+
+The kernel runs one thread block per set. It compacts the valid, non-NaN
+rows into a list of 64-bit keys (descending score bits, then the row) by
+a block prefix sum; checks in one pass whether that list is already in
+priority order, as the sets that come out of a top-k are, and sorts it
+with a bitonic network only when it is not; then runs the greedy scan
+in tiles of 32 ranks: from per-rank masks of the overlapping earlier
+ranks in each tile, built up front, one warp settles a tile's keep bits
+with warp votes, then the whole block tests the later ranks against the
+tile's kept boxes. It keeps 29 bytes a box in shared memory (box 16, key
+8, tile mask 4, suppressed flag 1), so a set holds at most ``MAX_K`` boxes.
 """
 
 import torch
@@ -14,7 +24,8 @@ import torch
 from ..utils import kernels
 from .boxes import pairwise_iou
 
-# the kernel keeps 30 bytes per box in shared memory (227 KB a block)
+# the kernel keeps 29 bytes a box in shared memory, plus 772 bytes of
+# tile buffers (227 KB a block); the automatic caps stay under this
 MAX_K = 7680
 
 
@@ -88,11 +99,11 @@ def nms_keep_mask_kernel(boxes, scores, valid, iou_thr, offset=0.0,
         raise ValueError(f"at most {MAX_K} boxes per set, got {k}")
     boxes = boxes.to(torch.float32).contiguous()
     scores = scores.to(torch.float32).contiguous()
-    valid_u8 = valid.to(torch.uint8).contiguous()
-    for name, t in (("boxes", boxes), ("scores", scores),
-                    ("valid", valid_u8)):
-        kernels.require_cuda_tensor(t, name)
-    if scores.device != boxes.device or valid_u8.device != boxes.device:
+    valid = valid.contiguous()  # bool: one byte, 0 or 1, read as it is
+    for name, t, dtype in (("boxes", boxes, None), ("scores", scores, None),
+                           ("valid", valid, torch.bool)):
+        kernels.require_cuda_tensor(t, name, dtype)
+    if scores.device != boxes.device or valid.device != boxes.device:
         raise ValueError("boxes, scores and valid must be on one device")
     keep = torch.empty((n, k), dtype=torch.bool, device=boxes.device)
     if n == 0 or k == 0:
@@ -100,7 +111,7 @@ def nms_keep_mask_kernel(boxes, scores, valid, iou_thr, offset=0.0,
     lib = kernels.library()
     stream = torch.cuda.current_stream(boxes.device).cuda_stream
     err = lib.vn_nms_keep_mask(boxes.data_ptr(), scores.data_ptr(),
-                               valid_u8.data_ptr(), keep.data_ptr(), n, k,
+                               valid.data_ptr(), keep.data_ptr(), n, k,
                                float(iou_thr), float(offset),
                                int(bool(min_mode)), stream)
     kernels.check_cuda(err, "vn_nms_keep_mask")
