@@ -37,8 +37,11 @@ Phases, one line of output each (a failed phase exits non-zero):
    5. K3 (nms_keep_mask) keep masks equal to the plain fixpoint at six
       shapes (stock per-scale, cross-scale, ONet stage, RetinaFace, one
       set of 4,096, all-equal scores), one set of MAX_K = 7,680, sets
-      with nv in {0, 1, 31, 32, 33, 65} and with +-0.0, +-inf and NaN
-      scores, and at every shape the three lines launch, each with its
+      with nv in {0, 1, 31, 32, 33, 65}, with +-0.0, +-inf and NaN
+      scores, and with NaN and +-inf coordinates (pairs whose IoU is NaN
+      keep both boxes, an empty intersection over a NaN denominator at a
+      negative threshold too), and at every shape the three lines launch, each
+      with its
       sets in priority order (as ops.boxes.top_k_select hands them over)
       and not; every line shape timed both ways beside its bound;
    6. K4 (crop_area_resize: the integral image in two grids, band totals
@@ -70,7 +73,21 @@ Phases, one line of output each (a failed phase exits non-zero):
       convolution's device time, TFLOP/s and GB/s;
   18. the production slice, counters held the same way;
   19. its profile;
-  20. its card vs CPU in f32 on 2 frames.
+  20. its card vs CPU in f32 on 2 frames;
+  21. the recognition library (``pipeline.recognition``) through its
+      entry points on 4 frames: MTCNN (cfg/detection/mtcnn.json) with
+      parallel_detect_and_align and sequential_detect_and_align, then
+      recognize_celeb (InceptionResnetV1 + MLP 1001); RetinaFace
+      (cfg/detection/retina_face.json) with parallel_detect_and_align,
+      then recognize_celeb (iresnet100 + MLP 1020) and recognize_emotion
+      (690 tags, top 6); f32, full depth. Launches held to exact per-call
+      counts (K1-K8 each launched), median host ms a call and stage
+      means, one profiled call per detector, K1's windows form at the
+      call's padded windows (torch.equal to the plain version, timed
+      against F.grid_sample), and the card against the CPU in f32 on 2
+      frames: equal face counts and names, boxes within 1e-2 px, aligned
+      faces within 1 level, embedding cosine >= 0.999, equal emotion
+      top-1 and probabilities within 5e-3.
 
 Kernel phases check bf16 at the lines' shapes and f32 on a slice of
 them; exact kernels (K3, K4) are held with torch.equal. Every kernel is
@@ -124,11 +141,11 @@ KERNEL_GRIDS = {
     "similarity_warp": ("similarity_warp_kernel",),
     "mnet_stage1": ("segment_kernel", "segment_mma_first", "segment_mma"),
     "emotion_stem": ("emotion_stem_kernel", "emotion_stem_mma"),
-    "bottleneck_chain": ("conv_gemm_bf16",),
+    "bottleneck_chain": ("conv_gemm_bf16", "pointwise_f32", "conv3x3_f32"),
     "nms_keep_mask": ("nms_keep_tiled",),
     "crop_area_resize": ("band_totals_kernel", "band_scan_kernel",
                          "crop_pool_kernel"),
-    "crop_net_trunk": ("crop_net_trunk_mma",),
+    "crop_net_trunk": ("crop_net_trunk_mma", "crop_net_trunk_f32"),
 }
 # K8's convolutions by the template arguments <BN, TAPS, RES> of its grid
 # in the profiler's (demangled or mangled) kernel name
@@ -181,6 +198,19 @@ STOCK_BATCH = 128
 STOCK_FACES = STOCK_BATCH * FACES_PER_FRAME
 STOCK_BUCKETS = [STOCK_FACES, STOCK_FACES + STOCK_BATCH]
 STOCK_CHUNKS = 4
+# the recognition library (phase 21): REC_FRAMES frames of 640 px with 4
+# faces each, REC_CALLS timed calls of each flow; InceptionResnetV1's MLP
+# has REC_CLASSES classes, iresnet100's PROD_CLASSES
+REC_FRAMES, REC_CALLS, REC_CLASSES = 4, 5, 1001
+# launches per call: an MTCNN flow detects (the default line's cascade)
+# and aligns once; the RetinaFace flow detects (K6's three segments, one
+# NMS), aligns once and runs the emotion net (K7 once, K8 three launches
+# for each of the 5 tail blocks)
+REC_LAUNCHES = {
+    "mtcnn": MTCNN_LINE_LAUNCHES,
+    "retinaface": {"mnet_stage1": 3, "nms_keep_mask": 1,
+                   "similarity_warp": 1, "emotion_stem": 1,
+                   "bottleneck_chain": 15}}
 # NVIDIA H100 SXM data-sheet peaks (dense), at the 700 W limit
 PEAK_BF16, PEAK_F32, PEAK_BYTES = 989e12, 67e12, 3.35e12
 # a bf16 kernel is held to its plain version computed in f32 on the same
@@ -250,7 +280,8 @@ def device_ms(torch, fn, names=(), runs=20):
             fn()
         torch.cuda.synchronize()
     events = [e for e in prof.key_averages()
-              if e.device_type == DeviceType.CUDA]
+              if e.device_type == DeviceType.CUDA
+              and not getattr(e, "is_user_annotation", False)]
     total = sum(e.self_device_time_total for e in events
                 if not names or is_grid(e.key, names))
     if total <= 0:
@@ -509,24 +540,24 @@ def drive(torch, kernels, engine, chunks, n, names):
     return times, valid_counts, counts, runs[0], out, res
 
 
-def profile_chunk(torch, engine, frames, names, chunk_ms, card, what,
-                  line, results):
-    """Device busy time of one chunk under torch.profiler, and each
-    kernel's device time and grids in it (added to its row as
-    ``chunk_device_ms[line]``)."""
+def profile_chunk(torch, run, chunk_ms, card, what, line, results,
+                  unit="chunk"):
+    """Device busy time of one call of ``run()`` (a chunk, or a call of the
+    recognition library) under torch.profiler, and each kernel's device
+    time and grids in it (added to its row as ``chunk_device_ms[line]``)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        out = engine.process_adaptive(frames)
-        engine.identify(out, names, 0.5)
+        run()
         torch.cuda.synchronize()
     averages = prof.key_averages()
     # device-side events only (the CPU ops that launched them repeat the
-    # same time); everything runs on one stream, so their sum is the busy
-    # time
-    device = [e for e in averages if e.device_type == DeviceType.CUDA]
+    # same time), without the spans of the library's annotated stages;
+    # everything runs on one stream, so their sum is the busy time
+    device = [e for e in averages if e.device_type == DeviceType.CUDA
+              and not getattr(e, "is_user_annotation", False)]
     busy_ms = sum(e.self_device_time_total for e in device) / 1e3
     if busy_ms <= 0.0:
         fail("torch.profiler recorded no device time")
@@ -539,8 +570,8 @@ def profile_chunk(torch, engine, frames, names, chunk_ms, card, what,
             results[kname].setdefault("chunk_device_ms", {})[line] = ms
             parts.append(f"{kname} {ms:.4f} ms in "
                          f"{sum(e.count for e in mine)} grids")
-    phase(what, f"one chunk: device busy {busy_ms:.2f} ms = "
-          f"{busy_ms / chunk_ms:.1%} of the median chunk {chunk_ms:.2f} ms "
+    phase(what, f"one {unit}: device busy {busy_ms:.2f} ms = "
+          f"{busy_ms / chunk_ms:.1%} of the median {unit} {chunk_ms:.2f} ms "
           f"(device idle {1 - busy_ms / chunk_ms:.1%}; {card}); kernels: "
           + "; ".join(parts))
     return busy_ms
@@ -612,6 +643,38 @@ def special_scores(torch, gen, scores):
     return torch.from_numpy(special[pick]).to(scores.device)
 
 
+def special_coords(torch, gen, boxes, valid):
+    """``boxes`` with about one box in six given a NaN, +inf or -inf
+    coordinate (x1, y1, x2 or y2, on either box of a pair), and in every
+    set two valid boxes of infinite area (x from -inf to +inf: inf + inf -
+    inf in the IoU's denominator) and one valid overflowed decode (x1 =
+    -inf, x2 = NaN, as RetinaFace's decode gives when exp overflows)."""
+    b = boxes.cpu().numpy().copy()
+    n, k = b.shape[:2]
+    special = np.float32([np.nan, np.inf, -np.inf])
+    s, r = np.nonzero(gen.uniform(size=(n, k)) < 1 / 6)
+    b[s, r, gen.integers(0, 4, len(s))] = special[gen.integers(0, 3, len(s))]
+    b[:, 0, [0, 2]] = [-np.inf, np.inf]
+    b[:, 1, [0, 2]] = [-np.inf, np.inf]
+    b[:, 2, [0, 2]] = [-np.inf, np.nan]
+    valid = valid.clone()
+    valid[:, :3] = True
+    return torch.from_numpy(b).to(boxes.device), valid
+
+
+def nan_pairs(torch, dev):
+    """Four sets of two overlapping boxes, scores 0.9 and 0.8, one
+    coordinate NaN (x1 of the first box; x2, y1, y2 of the second): the
+    IoU is NaN, so both are kept."""
+    pairs = [[[np.nan, 0, 10, 10], [1, 1, 10, 10]],
+             [[0, 0, 10, 10], [1, 1, np.nan, 10]],
+             [[0, 0, 10, 10], [1, np.nan, 10, 10]],
+             [[0, 0, 10, 10], [1, 1, 10, np.nan]]]
+    return (torch.tensor(pairs, dtype=torch.float32, device=dev),
+            torch.tensor([[0.9, 0.8]] * 4, device=dev),
+            torch.ones((4, 2), dtype=torch.bool, device=dev))
+
+
 def phase_k3(torch, kernels, K3, dev, card, results):
     """K3 keep masks equal to the plain version at the cascade's, the ONet
     stage's and RetinaFace's shapes, one set of 4,096, all-equal scores,
@@ -630,7 +693,17 @@ def phase_k3(torch, kernels, K3, dev, card, results):
              ("nv 0/1/31/32/33/65", 6, 96, 0.5, 0.0, False),
              ("+-0.0, +-inf, NaN scores", 64, 448, 0.5, 0.0, False),
              ("+-0.0, +-inf, NaN scores in order", 64, 448, 0.5, 0.0,
-              False)]
+              False),
+             ("NaN, +-inf coordinates", 64, 448, 0.5, 0.0, False),
+             ("NaN, +-inf coordinates in order", 64, 448, 0.5, 0.0, False),
+             ("NaN, +-inf coordinates, RetinaFace", 64, 1024, 0.4, 1.0,
+              False),
+             ("NaN, +-inf coordinates, ONet", 64, 128, 0.7, 1.0, True),
+             ("NaN coordinate pairs", 4, 2, 0.4, 1.0, False),
+             ("empty intersection, NaN denominator", 1, 2, -0.5, 0.0,
+              False),
+             ("empty intersection, NaN denominator, min", 1, 2, -0.5, 0.0,
+              True)]
     parts, timed_set = [], None
 
     def check(what, boxes, scores, valid, thr, off, mm):
@@ -648,6 +721,14 @@ def phase_k3(torch, kernels, K3, dev, card, results):
     for what, n, k, thr, off, mm in cases:
         if what.startswith("nv "):
             boxes, scores, valid = nv_edge_sets(torch, gen, k, dev)
+        elif what == "NaN coordinate pairs":
+            boxes, scores, valid = nan_pairs(torch, dev)
+        elif what.startswith("empty intersection"):
+            # areas +inf and -inf: the denominator is NaN (min mode: -inf)
+            boxes = torch.tensor([[[-np.inf, 0, np.inf, 1],
+                                   [np.inf, 5, -np.inf, 6]]], device=dev)
+            scores = torch.tensor([[0.9, 0.8]], device=dev)
+            valid = torch.ones((1, 2), dtype=torch.bool, device=dev)
         else:
             boxes, scores, valid = nms_sets(torch, gen, n, k, SIZE, dev)
         if what == "all-equal scores":
@@ -657,7 +738,14 @@ def phase_k3(torch, kernels, K3, dev, card, results):
             if what.endswith("in order"):
                 boxes, scores, valid = in_priority_order(torch, boxes,
                                                          scores, valid)
+        elif what.startswith("NaN, +-inf"):
+            boxes, valid = special_coords(torch, gen, boxes, valid)
+            if what.endswith("in order"):
+                boxes, scores, valid = in_priority_order(torch, boxes,
+                                                         scores, valid)
         got, part = check(what, boxes, scores, valid, thr, off, mm)
+        if what == "NaN coordinate pairs" and not bool(got.all()):
+            fail(f"K3 suppressed a box of a pair whose IoU is NaN: {got}")
         parts.append(part)
         if timed_set is None:
             timed_set = (boxes, scores, valid, got, thr)
@@ -1083,6 +1171,31 @@ def check_k1_boxes(torch, K1, mats, win, out_size):
     return shares
 
 
+def grid_sample_warp(torch, F, windows, mats, out_size):
+    """K1's windows form as one PyTorch call, the library yardstick: a
+    function running F.grid_sample (bilinear, zeros padding,
+    align_corners) of the f32 windows [K, N, N, 3], with each face's
+    sampling grid built here, outside the timing. It returns NCHW."""
+    from vn_celeb_face_recognition_tpu_torch.ops.image import invert_affine
+
+    n, dev = windows.shape[1], windows.device
+    inv = invert_affine(mats)
+    ar = torch.arange(float(out_size), device=dev)
+    ys, xs = torch.meshgrid(ar, ar, indexing="ij")
+    sx = inv[:, 0, 0, None, None] * xs + inv[:, 0, 1, None, None] * ys \
+        + inv[:, 0, 2, None, None]
+    sy = inv[:, 1, 0, None, None] * xs + inv[:, 1, 1, None, None] * ys \
+        + inv[:, 1, 2, None, None]
+    grid = torch.stack([sx, sy], -1) * (2.0 / (n - 1)) - 1.0
+    win_nchw = windows.permute(0, 3, 1, 2)
+
+    def grid_sample():
+        return F.grid_sample(win_nchw, grid, mode="bilinear",
+                             padding_mode="zeros", align_corners=True)
+
+    return grid_sample
+
+
 def phase_k1(torch, F, kernels, K1, frames, card, results):
     """K1 on the production line's 512 faces: the windows form (f32
     windows cut from the frames, with F.grid_sample on the same windows as
@@ -1119,25 +1232,7 @@ def phase_k1(torch, F, kernels, K1, frames, card, results):
                                                 mats, 112))
     ms_cut = median_ms(torch, lambda: K1.similarity_warp(
         K1.cut_windows(frames, idx, oy, ox, n), mats, 112))
-    # library yardstick: F.grid_sample (zeros padding, align_corners)
-    # on the same f32 windows with the sampling grid built outside the
-    # timing
-    from vn_celeb_face_recognition_tpu_torch.ops.image import invert_affine
-
-    inv = invert_affine(mats)
-    ys, xs = torch.meshgrid(torch.arange(112., device=dev),
-                            torch.arange(112., device=dev), indexing="ij")
-    sx = inv[:, 0, 0, None, None] * xs + inv[:, 0, 1, None, None] * ys \
-        + inv[:, 0, 2, None, None]
-    sy = inv[:, 1, 0, None, None] * xs + inv[:, 1, 1, None, None] * ys \
-        + inv[:, 1, 2, None, None]
-    grid = torch.stack([sx, sy], -1) * (2.0 / (n - 1)) - 1.0
-    win_nchw = windows.permute(0, 3, 1, 2)
-
-    def grid_sample():
-        return F.grid_sample(win_nchw, grid, mode="bilinear",
-                             padding_mode="zeros", align_corners=True)
-
+    grid_sample = grid_sample_warp(torch, F, windows, mats, 112)
     lib_err = float((grid_sample().permute(0, 2, 3, 1) - want).abs().max())
     library_ms = device_ms(torch, grid_sample) if lib_err <= 1e-2 else None
     call_lib = median_ms(torch, grid_sample)
@@ -1324,6 +1419,279 @@ def phase_k8(torch, kernels, K8, emo, card, results):
           f"ms ({TIMING}; {card})")
 
 
+def read_json(*parts):
+    with open(os.path.join(HERE, *parts)) as fp:
+        return json.load(fp)
+
+
+def name_tables():
+    """The 1,020-class name table (label -> name) and per-class thresholds
+    of meta_data/face_recognition, and the 690 emotion tags."""
+    import csv
+    import pickle
+
+    meta = os.path.join(HERE, "meta_data")
+    with open(os.path.join(meta, "face_recognition",
+                           "label2name_1020_cls.txt"), newline="") as fp:
+        names = {int(r["label"]): r["name"] for r in csv.DictReader(fp)}
+    thresholds = read_json("meta_data", "face_recognition",
+                           "local_thresholds.json")
+    with open(os.path.join(meta, "emotion_recognition", "etag2idx.pkl"),
+              "rb") as fp:
+        tags = pickle.load(fp)["idx2key"]
+    return names, thresholds, tags
+
+
+def recognition_models(torch, build_model, pipeline, dev):
+    """The library's models, full depth, seeded by the registry: encoder +
+    MLP for each detector's flow and the emotion net, wrapped on ``dev``,
+    and f32 copies of the same weights wrapped on the CPU."""
+    emo = build_model("resnet_2branch_50",
+                      **read_json("cfg", "emotion", "resnet50_2_branch.json"))
+    with torch.no_grad():  # logits of order 1, so the softmax is not flat 0/1
+        emo.fc.weight.mul_(0.02)
+    modules = (build_model("InceptionResnetV1"),
+               build_model("MLPModel", input_dim=512, num_classes=REC_CLASSES),
+               build_model("iresnet100"),
+               build_model("MLPModel", input_dim=512,
+                           num_classes=PROD_CLASSES), emo)
+    wrappers = (pipeline.Encoder, pipeline.Classifier, pipeline.Encoder,
+                pipeline.Classifier, pipeline.EmotionModel)
+    cpu = [w(copy.deepcopy(m), device="cpu")
+           for w, m in zip(wrappers, modules)]
+    card = [w(m, device=dev) for w, m in zip(wrappers, modules)]
+    return card, cpu
+
+
+def recognition_flows(pipeline, dets, models, tables):
+    """The library's three calls the phase drives, as a user's image loop
+    makes them: {name: (flow, encoder)}, ``flow(images, timer=None)`` ->
+    dict of per-image faces, boxes, names (and emotion tags and
+    probabilities)."""
+    mtcnn, retina = dets
+    enc, clf, penc, pclf, emo = models
+    names, thresholds, tags = tables
+    tpl, fs = pipeline.center_point_dict["(112, 112)"], (112, 112)
+    celebs = {label: f"celeb_{label}" for label in range(REC_CLASSES)}
+    map_tags = np.vectorize(lambda i: tags[i])
+    box_req = {"min_dim": 50, "box_ratio": 2.0}  # the CLIs' defaults
+
+    def mtcnn_flow(detect_and_align):
+        def flow(imgs, timer=None):
+            faces, boxes = detect_and_align(imgs, timer)
+            return dict(faces=faces, boxes=boxes, names=pipeline.
+                        recognize_celeb(faces, None, enc, clf, None, celebs,
+                                        0.0, timer=timer))
+        return flow
+
+    def retina_flow(imgs, timer=None):
+        faces, boxes = pipeline.parallel_detect_and_align(
+            imgs, retina, tpl, fs, timer=timer)
+        out = dict(faces=faces, boxes=boxes, names=pipeline.recognize_celeb(
+            faces, None, penc, pclf, None, names, thresholds, timer=timer))
+        out["emotions"], out["probs"] = pipeline.recognize_emotion(
+            faces, None, emo, None, map_tags, EMOTION_TOPK, timer=timer)
+        return out
+
+    return {
+        "mtcnn-parallel": (mtcnn_flow(
+            lambda imgs, t: pipeline.parallel_detect_and_align(
+                imgs, mtcnn, tpl, fs, timer=t)), enc),
+        "mtcnn-sequential": (mtcnn_flow(
+            lambda imgs, t: pipeline.sequential_detect_and_align(
+                imgs, mtcnn, tpl, fs, box_req, timer=t)), enc),
+        "retinaface-parallel": (retina_flow, penc)}
+
+
+def compare_flows(pipeline, what, gpu, cpu, gpu_enc, cpu_enc):
+    """One flow's outputs on the card against the CPU's, f32, 2 frames:
+    equal face counts per frame; each card box paired with the nearest CPU
+    box (detect orders faces by area, and near-equal areas may swap), the
+    pairs within 1e-2 px; aligned uint8 faces within 1 level; embedding
+    cosine >= 0.999; equal names; equal emotion top-1 and probabilities
+    within 5e-3. Returns a summary."""
+    box_err, level, cos_min, prob_err, faces = 0.0, 0, 1.0, 0.0, 0
+    for i, (gb, cb) in enumerate(zip(gpu["boxes"], cpu["boxes"])):
+        if len(gb) != len(cb) or len(gb) == 0:
+            fail(f"{what}: frame {i}: {len(gb)} faces on the card, "
+                 f"{len(cb)} on the CPU")
+        d = np.abs(np.asarray(gb, np.float64)[:, None]
+                   - np.asarray(cb, np.float64)[None]).max(-1)
+        perm = d.argmin(1)
+        if sorted(perm.tolist()) != list(range(len(cb))):
+            fail(f"{what}: frame {i}: the card's boxes do not pair up with "
+                 "the CPU's")
+        box_err = max(box_err, float(d[np.arange(len(gb)), perm].max()))
+        gf = np.stack(gpu["faces"][i])
+        cf = np.stack(cpu["faces"][i])[perm]
+        level = max(level, int(np.abs(gf.astype(np.int16)
+                                      - cf.astype(np.int16)).max()))
+        ge = pipeline.find_embedding(gf.astype(np.float32), gpu_enc)
+        ce = pipeline.find_embedding(cf.astype(np.float32), cpu_enc)
+        cos = (ge * ce).sum(-1) / (np.linalg.norm(ge, axis=-1)
+                                   * np.linalg.norm(ce, axis=-1))
+        cos_min = min(cos_min, float(cos.min()))
+        if list(gpu["names"][i]) != [cpu["names"][i][j] for j in perm]:
+            fail(f"{what}: frame {i}: names {gpu['names'][i]} on the card, "
+                 f"{cpu['names'][i]} on the CPU")
+        if "emotions" in gpu:
+            if not np.array_equal(gpu["emotions"][i][:, 0],
+                                  cpu["emotions"][i][perm, 0]):
+                fail(f"{what}: frame {i}: emotion top-1 differs")
+            prob_err = max(prob_err, float(np.abs(
+                gpu["probs"][i] - cpu["probs"][i][perm]).max()))
+        faces += len(gb)
+    summary = (f"{what}: {faces} faces, counts equal; max box diff "
+               f"{box_err:.2e} (atol 1e-2); max face diff {level} levels "
+               f"(<= 1); min embedding cosine {cos_min:.6f} (>= 0.999); "
+               f"names equal")
+    if "emotions" in gpu:
+        summary += (f"; emotion top-1 equal, max prob diff {prob_err:.2e} "
+                    "(atol 5e-3)")
+    if box_err > 1e-2 or level > 1 or cos_min < 0.999 or prob_err > 5e-3:
+        fail(f"{what} card vs CPU outside tolerance: {summary}")
+    return summary
+
+
+def phase_recognition(torch, F, kernels, K1, dev, card, results):
+    """21. The recognition library through its entry points, at full width:
+    MTCNN (cfg/detection/mtcnn.json) with parallel_detect_and_align and
+    sequential_detect_and_align, then recognize_celeb (InceptionResnetV1 +
+    MLP 1001); RetinaFace (cfg/detection/retina_face.json, the fitted mnet
+    weights) with parallel_detect_and_align, then recognize_celeb
+    (iresnet100 + MLP 1020, the per-class thresholds) and
+    recognize_emotion (ResNet-50, 690 tags, top 6); f32, as the configs
+    give them. Each flow's launches are held to exact per-call counts, K1
+    through K8 must each launch; each flow's median host ms over
+    REC_CALLS calls and its stage means; one profiled call per detector;
+    K1's windows form at this path's windows held to its plain version
+    with torch.equal and timed against F.grid_sample; the card against
+    the CPU in f32 on 2 frames."""
+    from vn_celeb_face_recognition_tpu_torch import pipeline
+    from vn_celeb_face_recognition_tpu_torch.models import (
+        build_detector,
+        build_model,
+    )
+    from vn_celeb_face_recognition_tpu_torch.ops.similarity import (
+        umeyama_similarity,
+    )
+    from vn_celeb_face_recognition_tpu_torch.pipeline.align import (
+        pad_windows,
+    )
+    from vn_celeb_face_recognition_tpu_torch.utils.frames import build_frames
+    from vn_celeb_face_recognition_tpu_torch.utils.tracing import StageTimer
+
+    imgs = list(build_frames(REC_FRAMES, SIZE, FACES_PER_FRAME))
+    mtcnn_cfg = read_json("cfg", "detection", "mtcnn.json")
+    retina_cfg = read_json("cfg", "detection", "retina_face.json")
+    retina_cfg["weights_path"] = os.path.join(HERE,
+                                              retina_cfg["weights_path"])
+    dets = (build_detector("MTCNN", device=dev, **mtcnn_cfg),
+            build_detector("RetinaFace", device=dev, **retina_cfg))
+    tables = name_tables()
+    models, models_cpu = recognition_models(torch, build_model, pipeline,
+                                            dev)
+    flows = recognition_flows(pipeline, dets, models, tables)
+
+    lines, medians, counted = [], {}, {}
+    for what, (flow, _) in flows.items():
+        flow(imgs)  # warm-up: cuDNN plans, allocator
+        torch.cuda.synchronize()
+        timer = StageTimer()
+        kernels.reset_launch_counts()
+        times = []
+        for _ in range(REC_CALLS):
+            t0 = time.perf_counter()
+            out = flow(imgs, timer)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+        counts = kernels.launch_counts()
+        check_line_counts(counts, REC_LAUNCHES[what.split("-")[0]],
+                          REC_CALLS, f"recognition {what}", results)
+        for k, n in counts.items():
+            counted[k] = counted.get(k, 0) + n
+            if n:
+                rec = results[k].setdefault("recognition_launches", {})
+                rec[what] = n
+        per_frame = [len(f) for f in out["faces"]]
+        if min(per_frame) < FACES_PER_FRAME:
+            fail(f"recognition {what}: faces per frame {per_frame}")
+        medians[what] = sorted(times)[len(times) // 2] * 1e3
+        stages = ", ".join(f"{name} {st['mean_ms']:.2f}"
+                           for name, st in timer.report().items())
+        lines.append(f"{what}: median {medians[what]:.2f} ms a call of "
+                     f"{REC_FRAMES} frames (host clock, {REC_CALLS} calls; "
+                     f"stage means ms: {stages}); faces per frame "
+                     f"{per_frame}; names of frame 0 {out['names'][0]}; "
+                     f"launches {({k: n for k, n in counts.items() if n})}")
+    missing = [k for k in KERNEL_SOURCES if not counted.get(k)]
+    if missing:
+        fail(f"recognition: kernels never launched: {missing}")
+    phase("recognition", f"{SIZE}x{SIZE} frames, f32, through the "
+          f"library's entry points; each flow's launches held to exact "
+          f"per-call counts; {card}: " + "; ".join(lines))
+
+    # one profiled call per detector
+    for what in ("mtcnn-parallel", "retinaface-parallel"):
+        flow = flows[what][0]
+        profile_chunk(torch, lambda: flow(imgs), medians[what], card,
+                      f"recognition-profile {what}", f"recognition {what}",
+                      results, unit="call")
+
+    # K1's windows form at this path's windows: RetinaFace's faces of the
+    # call, padded as align_crops pads them
+    boxes, _, lms = dets[1].inference(imgs)
+    crops, pts = [], []
+    for img, bx, lm in zip(imgs, boxes, lms):
+        faces, idx = pipeline.get_face_from_boxes(img, bx)
+        crops += faces
+        pts += [pipeline.move_landmark_to_box(bx[j], lm[j]) for j in idx]
+    windows = torch.from_numpy(pad_windows(crops)).to(dev).to(torch.float32)
+    mats = umeyama_similarity(
+        torch.from_numpy(np.asarray(pts, np.float32)).to(dev),
+        torch.from_numpy(pipeline.center_point_dict["(112, 112)"]).to(dev))
+    k, n = windows.shape[:2]
+    got = through_kernel(kernels, "similarity_warp",
+                         lambda: K1.similarity_warp(windows, mats, 112))
+    want = K1.similarity_warp_plain(windows, mats, 112)
+    if not torch.equal(got, want):
+        fail(f"K1 windows form at the recognition path's {k}x{n} windows: "
+             f"max abs diff {float((got - want).abs().max()):.3e} from the "
+             "plain version")
+    ms, call_ms, plain_ms = timed(
+        torch, "similarity_warp",
+        lambda: K1.similarity_warp(windows, mats, 112),
+        lambda: K1.similarity_warp_plain(windows, mats, 112))
+    grid_sample = grid_sample_warp(torch, F, windows, mats, 112)
+    lib_err = float((grid_sample().permute(0, 2, 3, 1) - want).abs().max())
+    library_ms = device_ms(torch, grid_sample) if lib_err <= 1e-2 else None
+    win_px = warp_footprint_pixels(torch, mats, n, 112)
+    bound_ms, bound_by = bound(win_px * 3 * 4 + got.numel() * 4
+                               + mats.numel() * 4, got.numel() * 12, PEAK_F32)
+    results["similarity_warp"]["recognition_windows"] = dict(
+        faces=k, window=n, ms=ms, call_ms=call_ms, plain_ms=plain_ms,
+        library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by)
+    lib = f"{library_ms:.4f} ms" if library_ms else "not timed"
+    phase("recognition-K1", f"similarity_warp windows form at the "
+          f"RetinaFace flow's {k} faces, {n}x{n} f32 windows -> 112: equal "
+          f"to the plain version (torch.equal); kernel {ms:.4f} ms, call "
+          f"{call_ms:.4f} ms, plain {plain_ms:.3f} ms, F.grid_sample on the "
+          f"same windows {lib} (max abs diff {lib_err:.3e}), bound "
+          f"{bound_ms:.4f} ms ({bound_by}; {win_px} window pixels read) "
+          f"({TIMING}; {card})")
+
+    # the card against the CPU, f32, 2 frames
+    dets_cpu = (build_detector("MTCNN", device="cpu", **mtcnn_cfg),
+                build_detector("RetinaFace", device="cpu", **retina_cfg))
+    flows_cpu = recognition_flows(pipeline, dets_cpu, models_cpu, tables)
+    two = imgs[:2]
+    parts = [compare_flows(pipeline, what, flows[what][0](two),
+                           flows_cpu[what][0](two), flows[what][1],
+                           flows_cpu[what][1]) for what in flows]
+    phase("recognition-card-vs-cpu", f"2x{SIZE}x{SIZE} f32: "
+          + "; ".join(parts))
+
+
 def main():
     if not os.path.isdir(os.path.join(HERE, PKG)):
         fail(f"no {PKG} package beside {os.path.basename(__file__)}; run "
@@ -1445,8 +1813,9 @@ def main():
         fail(f"too few faces detected: {valid_counts}")
 
     # ---- 9. profile ---------------------------------------------------
-    profile_chunk(torch, engine, chunks[0], names, chunk_ms, card, "profile",
-                  "default", results)
+    profile_chunk(torch, lambda: engine.identify(
+        engine.process_adaptive(chunks[0]), names, 0.5), chunk_ms, card,
+        "profile", "default", results)
 
     # ---- 10. card vs CPU -----------------------------------------------
     mtcnn_card_vs_cpu(torch, FusedRecognitionEngine, MTCNN, DETECTOR,
@@ -1483,8 +1852,9 @@ def main():
         fail(f"too few faces detected: {valid_counts}")
 
     # ---- 12. its profile -----------------------------------------------
-    profile_chunk(torch, engine, chunks[0], names, chunk_ms, card,
-                  "stock-profile", "stock", results)
+    profile_chunk(torch, lambda: engine.identify(
+        engine.process_adaptive(chunks[0]), names, 0.5), chunk_ms, card,
+        "stock-profile", "stock", results)
     del engine, chunks, out
 
     # ---- 13. stock card vs CPU -----------------------------------------
@@ -1657,8 +2027,9 @@ def main():
         fail(f"too few faces detected: {valid_counts}")
 
     # ---- 19. profile ---------------------------------------------------
-    profile_chunk(torch, engine, chunks[0], names, chunk_ms, card,
-                  "production-profile", "production", results)
+    profile_chunk(torch, lambda: engine.identify(
+        engine.process_adaptive(chunks[0]), names, 0.5), chunk_ms, card,
+        "production-profile", "production", results)
     del engine, chunks, out, res
 
     # ---- 20. production card vs CPU ------------------------------------
@@ -1694,6 +2065,12 @@ def main():
     if (int(v.sum()) == 0 or box_err > 1e-2 or float(cos.min()) < 0.999
             or not top1_equal or prob_err > 5e-3):
         fail("production card vs CPU outside tolerance")
+
+    del prod, rdet, penc, pclf, emo, penc_cpu, pclf_cpu, emo_cpu, eng
+    torch.cuda.empty_cache()
+
+    # ---- 21. the recognition library -------------------------------------
+    phase_recognition(torch, F, kernels, K1, dev, card, results)
 
     kernel_rows = []
     for kname, (src, replaces) in KERNEL_SOURCES.items():

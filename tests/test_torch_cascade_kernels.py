@@ -54,15 +54,37 @@ def _nms_sets(seed, n=4, k=45):
     return boxes, scores, valid
 
 
+def _special_coords(gen, boxes):
+    """``boxes`` [n, k, 4] with about one box in six given a NaN, +inf or
+    -inf coordinate (x1, y1, x2 or y2 at random, so on either box of a
+    pair), in every set two boxes of infinite area (x from -inf to +inf:
+    their denominator is inf + inf - inf) and one decode that overflowed
+    (x1 = -inf, x2 = NaN, as RetinaFace's decode gives when exp
+    overflows)."""
+    boxes = boxes.copy()
+    n, k = boxes.shape[:2]
+    special = np.float32([np.nan, np.inf, -np.inf])
+    s, r = np.nonzero(gen.uniform(size=(n, k)) < 1 / 6)
+    boxes[s, r, gen.integers(0, 4, len(s))] = special[
+        gen.integers(0, 3, len(s))]
+    boxes[:, 0, [0, 2]] = [-np.inf, np.inf]
+    boxes[:, 1, [0, 2]] = [-np.inf, np.inf]
+    boxes[:, 2, [0, 2]] = [-np.inf, np.nan]
+    return boxes
+
+
 @pytest.mark.parametrize("offset,min_mode,thr", [(0.0, False, 0.5),
                                                  (1.0, False, 0.4),
                                                  (1.0, True, 0.7)])
 def test_nms_keep_mask_matches_pallas_and_xla(offset, min_mode, thr):
     """Equal keep sets against the TPU kernel (interpret mode) and the XLA
     function, for the three (offset, min_mode) cases of the cascade and
-    RetinaFace; the CPU wrapper counts no launch."""
-    for seed in range(3):
+    RetinaFace, with NaN and +-inf coordinates in the last sets; the CPU
+    wrapper counts no launch."""
+    for seed in range(4):
         boxes, scores, valid = _nms_sets(seed)
+        if seed == 3:
+            boxes = _special_coords(np.random.default_rng(seed), boxes)
         args = (jnp.asarray(boxes), jnp.asarray(scores), jnp.asarray(valid),
                 thr, offset, min_mode)
         want = np.asarray(nms_keep_mask_pallas(*args, interpret=True))
@@ -77,20 +99,38 @@ def test_nms_keep_mask_matches_pallas_and_xla(offset, min_mode, thr):
 
 
 def _iou_gt(a, b, off, min_mode, thr):
-    """The kernel's IoU test in f32, operation by operation. Its two
-    screens are checked against the IEEE division on every call: an empty
+    """The kernel's IoU test in f32, operation by operation, with np.fmin
+    and np.fmax where it uses fminf and fmaxf (which drop a NaN) and its
+    NaN check ahead of the division. On every call it is held to the plain
+    IoU, whose maximum, minimum and clamp pass a NaN on (as torch's and
+    JAX's do), and its two screens to the IEEE division: an empty
     intersection decides without it, and so does any quotient within
     2^-22 (2 ulp) of the exact one that lies outside thr (1 +- 2^-20)."""
     f = np.float32
+    a, b = np.asarray(a, f), np.asarray(b, f)
     off, thr = f(off), f(thr)
-    area_a = (f(a[2] - a[0]) + off) * (f(a[3] - a[1]) + off)
-    area_b = (f(b[2] - b[0]) + off) * (f(b[3] - b[1]) + off)
-    w = max(f(f(min(a[2], b[2]) - max(a[0], b[0])) + off), f(0))
-    h = max(f(f(min(a[3], b[3]) - max(a[1], b[1])) + off), f(0))
-    inter = f(w * h)
-    denom = max(min(area_a, area_b) if min_mode else f(f(area_a + area_b)
-                                                         - inter), f(1e-12))
-    exact = f(inter / denom) > thr
+    with np.errstate(invalid="ignore", over="ignore"):
+        area_a = (f(a[2] - a[0]) + off) * (f(a[3] - a[1]) + off)
+        area_b = (f(b[2] - b[0]) + off) * (f(b[3] - b[1]) + off)
+        # the plain version: NaN passes through maximum, minimum and clamp
+        wh = np.maximum(np.minimum(a[2:], b[2:]) - np.maximum(a[:2], b[:2])
+                        + off, f(0))
+        p_inter = f(wh[0] * wh[1])
+        p_denom = (np.minimum(area_a, area_b) if min_mode
+                   else f(f(area_a + area_b) - p_inter))
+        plain = f(p_inter / np.maximum(p_denom, f(1e-12))) > thr
+        # the kernel
+        wr = f(f(np.fmin(a[2], b[2]) - np.fmax(a[0], b[0])) + off)
+        hr = f(f(np.fmin(a[3], b[3]) - np.fmax(a[1], b[1])) + off)
+        inter = f(np.fmax(wr, f(0)) * np.fmax(hr, f(0)))
+        dr = (np.fmin(area_a, area_b) if min_mode
+              else f(f(area_a + area_b) - inter))
+        if np.isnan([area_a, area_b, wr, hr, inter, dr]).any():
+            assert not plain
+            return False
+        denom = np.fmax(dr, f(1e-12))
+        exact = f(inter / denom) > thr
+    assert exact == plain
     if inter == 0:
         assert exact == (f(0) > thr)
     elif 2.0 ** -100 <= thr <= 2.0 ** 100 and denom < 2.0 ** 100:
@@ -229,13 +269,14 @@ def _threshold_set(gen, k):
 
 
 _NMS_CASES = ["ties", "nan", "dense", "signed_zero_inf", "in_order",
-              "nv_edges", "threshold"]
+              "nv_edges", "threshold", "nan_inf_coords"]
 
 
 def _nms_case(case):
     gen = np.random.default_rng(11 + _NMS_CASES.index(case))
     n, k = (6, 80) if case == "nv_edges" else (3, 70)
-    hi = 30.0 if case in ("dense", "nv_edges", "signed_zero_inf") else 100.0
+    hi = 30.0 if case in ("dense", "nv_edges", "signed_zero_inf",
+                          "nan_inf_coords") else 100.0
     boxes = _boxes(gen, (n, k), hi=hi)
     scores = (gen.integers(0, 6, (n, k)) / 5).astype(np.float32)
     valid = gen.uniform(size=(n, k)) < 0.9
@@ -257,6 +298,9 @@ def _nms_case(case):
             valid[s, gen.permutation(k)[:nv]] = True
     elif case == "threshold":
         boxes = np.stack([_threshold_set(gen, k) for _ in range(n)])
+    elif case == "nan_inf_coords":
+        boxes = _special_coords(gen, boxes)
+        valid[:, :3] = True
         scores = gen.permutation(n * k).reshape(n, k).astype(np.float32)
     if case in ("in_order", "nv_edges"):
         for s in range(0, n, 1 if case == "in_order" else 2):
@@ -273,7 +317,7 @@ def test_nms_rank_and_greedy_scan_emulation(case):
     resolve and block apply, the IoU screens), emulated in numpy, give the plain fixpoint's keep set: with
     ties, NaN, -0.0/+0.0 and +-inf scores, dense clusters, sets in and out
     of priority order, nv in {0, 1, 31, 32, 33, 65}, and boxes at the IoU
-    threshold."""
+    threshold, and with NaN and +-inf coordinates."""
     boxes, scores, valid = _nms_case(case)
     sorted_sets = []
     for off, mm, thr in ((0.0, False, 0.5), (1.0, True, 0.7),
@@ -291,6 +335,30 @@ def test_nms_rank_and_greedy_scan_emulation(case):
         assert all(sorted_sets)
     elif case == "signed_zero_inf":
         assert sorted_sets[2::3] == [False] * 3  # -0.0 ties +0.0
+    if case == "nan_inf_coords":
+        # a NaN coordinate on either box of an overlapping pair: neither
+        # suppresses the other (the IoU is NaN, and NaN > thr is false)
+        for pair in ([[np.nan, 0, 10, 10], [1, 1, 10, 10]],
+                     [[0, 0, 10, 10], [1, 1, np.nan, 10]],
+                     [[0, 0, 10, 10], [1, np.nan, 10, 10]],
+                     [[0, 0, 10, 10], [1, 1, 10, np.nan]]):
+            pb = np.float32([pair])
+            args = (np.float32([[0.9, 0.8]]), np.ones((1, 2), bool))
+            assert K3.nms_keep_mask_plain(_t(pb), *map(_t, args), 0.4,
+                                          1.0).all()
+            assert _nms_emulated(pb[0], args[0][0], args[1][0], 0.4, 1.0,
+                                 False)[0].all()
+        # an empty intersection over a NaN denominator (areas +inf and
+        # -inf): the quotient is NaN, not > a negative thr; in min mode the
+        # denominator is -inf, clamped, and 0 > thr holds
+        pb = np.float32([[[-np.inf, 0, np.inf, 1], [np.inf, 5, -np.inf, 6]]])
+        args = (np.float32([[0.9, 0.8]]), np.ones((1, 2), bool))
+        for mm, want in ((False, [True, True]), (True, [True, False])):
+            assert _iou_gt(pb[0, 0], pb[0, 1], 0.0, mm, -0.5) == (not want[1])
+            np.testing.assert_array_equal(K3.nms_keep_mask_plain(
+                _t(pb), *map(_t, args), -0.5, 0.0, mm)[0].numpy(), want)
+            np.testing.assert_array_equal(_nms_emulated(
+                pb[0], args[0][0], args[1][0], -0.5, 0.0, mm)[0], want)
     if case == "threshold":  # the exact-threshold pairs are all kept
         pair = K3.nms_keep_mask_plain(
             _t(np.float32([[[0, 0, 2, 1], [0, 0, 1, 1]]])),

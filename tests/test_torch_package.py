@@ -39,17 +39,19 @@ def test_port_imports_without_jax_or_flax():
     for mod in ("models.retinaface", "models.iresnet",
                 "models.resnet_2_branch", "ops.planar_s1",
                 "ops.emotion_stem", "ops.bottleneck", "ops.nms", "ops.crop",
-                "ops.crops_net"):
+                "ops.crops_net", "pipeline.recognition", "data.transforms",
+                "training.checkpoint"):
         assert f"{PKG}.{mod}" in mods
     code = (
         "import sys\n"
-        "sys.modules['jax'] = None\n"
-        "sys.modules['flax'] = None\n"
+        "for absent in ('jax', 'flax', 'pandas', 'PIL', 'cv2'):\n"
+        "    sys.modules[absent] = None\n"
         "import importlib\n"
         f"for m in {mods!r}:\n"
         "    importlib.import_module(m)\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
-        "('jax', 'flax', 'vn_celeb_face_recognition_tpu') "
+        "('jax', 'flax', 'pandas', 'PIL', 'cv2', "
+        "'vn_celeb_face_recognition_tpu') "
         "and sys.modules[m] is not None]\n"
         "assert not bad, bad\n"
         "print('ok')\n")

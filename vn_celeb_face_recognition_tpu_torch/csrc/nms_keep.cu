@@ -8,6 +8,8 @@
 // is the +1 pixel-area convention, `min_mode` divides the intersection by
 // the smaller area. A valid box whose score is NaN compares with no
 // other, so it is kept and suppresses nothing, as in the plain version.
+// A pair whose plain IoU is NaN (a NaN coordinate, or inf - inf in a
+// width, area or denominator) does not overlap, since NaN > thr is false.
 //
 // Bound on the H100: the function reads 21 bytes and writes 1 byte per
 // box, and needs one IoU test per valid box and kept box ahead of it (up
@@ -58,6 +60,7 @@
 //   area = (x2 - x1 + off) * (y2 - y1 + off)
 //   inter = max(rb - lt + off, 0) products
 //   denom = a + b - inter (or min(a, b)); iou = inter / max(denom, 1e-12)
+// with NaN passed on where the plain version passes it on (see `overlaps`).
 // Two screens that provably give the same answer skip the IEEE division
 // in clear cases (see `overlaps`).
 
@@ -94,24 +97,32 @@ __device__ __forceinline__ float area_of(float4 b, float off) {
                    __fadd_rn(__fsub_rn(b.w, b.y), off));
 }
 
-// iou(a, b) > thr, exactly as the plain version computes it. Two screens
-// decide the clear cases without the IEEE division, and give the same
-// answer: an empty intersection makes the quotient +-0 (the denominator
-// is at least 1e-12 or +inf after fmaxf); and __fdividef is within 2 ulp
-// (2^-22 relative) of the quotient for denominators up to 2^126, so a
-// result outside thr (1 +- 2^-20) rounds to the same side of thr.
+// iou(a, b) > thr, exactly as the plain version computes it. The plain
+// version's maximum, minimum and clamp pass a NaN on, where fminf and fmaxf
+// drop it; so wherever its IoU is NaN (and NaN > thr is false) this returns
+// false first: a NaN coordinate (which makes its box's area NaN), a NaN
+// width or height (inf - inf), intersection (inf * 0) or denominator
+// (inf + inf - inf). Past that check no operand is NaN and fminf/fmaxf are
+// the plain version's operations. Two screens then decide the clear cases
+// without the IEEE division, and give the same answer: an empty
+// intersection makes the quotient +-0 (the denominator is at least 1e-12
+// or +inf after fmaxf); and __fdividef is within 2 ulp (2^-22 relative) of
+// the quotient for denominators up to 2^126, so a result outside
+// thr (1 +- 2^-20) rounds to the same side of thr.
 __device__ __forceinline__ bool overlaps(float4 a, float area_a, float4 b,
                                          float area_b, const IouTest& t) {
-  const float w = fmaxf(
-      __fadd_rn(__fsub_rn(fminf(a.z, b.z), fmaxf(a.x, b.x)), t.off), 0.f);
-  const float h = fmaxf(
-      __fadd_rn(__fsub_rn(fminf(a.w, b.w), fmaxf(a.y, b.y)), t.off), 0.f);
-  const float inter = __fmul_rn(w, h);
+  const float wr =
+      __fadd_rn(__fsub_rn(fminf(a.z, b.z), fmaxf(a.x, b.x)), t.off);
+  const float hr =
+      __fadd_rn(__fsub_rn(fminf(a.w, b.w), fmaxf(a.y, b.y)), t.off);
+  const float inter = __fmul_rn(fmaxf(wr, 0.f), fmaxf(hr, 0.f));
+  const float dr = t.min_mode ? fminf(area_a, area_b)
+                              : __fsub_rn(__fadd_rn(area_a, area_b), inter);
+  if (isnan(area_a) | isnan(area_b) | isnan(wr) | isnan(hr) | isnan(inter) |
+      isnan(dr))
+    return false;
   if (inter == 0.f) return 0.f > t.thr;
-  const float denom = fmaxf(
-      t.min_mode ? fminf(area_a, area_b)
-                 : __fsub_rn(__fadd_rn(area_a, area_b), inter),
-      1e-12f);
+  const float denom = fmaxf(dr, 1e-12f);
   if (denom < 0x1p100f) {
     const float q = __fdividef(inter, denom);
     if (q > t.thr_hi) return true;

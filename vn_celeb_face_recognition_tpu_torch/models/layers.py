@@ -56,14 +56,41 @@ class BasicConv2d(nn.Module):
         return F.relu(batch_norm(self.bn, conv(self.conv, x)))
 
 
+def coerce_dtype(d):
+    """A config's dtype (None, a torch dtype, or its name such as
+    ``"bfloat16"``) -> a torch dtype; None is float32."""
+    if d is None:
+        return torch.float32
+    if isinstance(d, torch.dtype):
+        return d
+    dtype = getattr(torch, str(d), None)
+    if not isinstance(dtype, torch.dtype):
+        raise ValueError(f"unknown dtype {d!r}")
+    return dtype
+
+
+def read_state_dict(path):
+    """A torch-keyed state_dict from a local ``.npz`` or a torch ``.pth`` /
+    ``.pt`` file (read with ``weights_only=True``; a ``state_dict`` entry
+    is taken when the file holds a training checkpoint), as f32 tensors,
+    with a DataParallel ``module.`` prefix dropped."""
+    if str(path).endswith(".npz"):
+        with np.load(path) as z:
+            sd = {k: np.array(z[k]) for k in z.files}
+    else:
+        sd = torch.load(path, map_location="cpu", weights_only=True)
+        if isinstance(sd, dict) and "state_dict" in sd:
+            sd = sd["state_dict"]
+    return {k.removeprefix("module."):
+            (v.to(torch.float32) if isinstance(v, torch.Tensor)
+             else torch.from_numpy(np.array(v, dtype=np.float32)))
+            for k, v in sd.items()}
+
+
 def load_npz(net, path):
     """Load a torch-keyed npz state_dict into ``net`` (strict; a
     DataParallel ``module.`` prefix is dropped)."""
-    with np.load(path) as z:
-        sd = {k.removeprefix("module."):
-              torch.from_numpy(np.array(z[k], dtype=np.float32))
-              for k in z.files}
-    net.load_state_dict(sd, strict=True)
+    net.load_state_dict(read_state_dict(path), strict=True)
     return net
 
 

@@ -7,7 +7,9 @@ reference's state_dict keys, so the vendored torch-keyed
 detector keeps the JAX package's fixed-capacity inference: priors once
 per frame size, conf > ``conf_thres``, per-frame top ``nms_cap``, decode
 after the top-k, exact NMS (+1 area convention), ``vis_thres``, then the
-top ``out_cap`` faces per frame.
+top ``out_cap`` faces per frame for the engine (``detect_padded``), or
+every face, up to ``keep_top_k``, as numpy lists for the host API
+(``inference``).
 
 The net takes the uint8 frames: stage 1 of the body runs through kernel
 K6 (``ops.planar_s1``), which subtracts the channel means itself; stages
@@ -16,7 +18,9 @@ ported; the ResNet-50 body is later work.
 """
 
 import os
+import warnings
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
@@ -204,22 +208,32 @@ class RetinaFace:
     """Batched RetinaFace detector: every face of a frame above
     ``vis_thres``, up to ``out_cap``.
 
-    Constructor arguments mirror the JAX package's ``RetinaFace``;
-    ``dtype`` is the compute dtype of the net (heads and decode stay
-    f32) and ``device`` where it runs (the card unless ``"cpu"`` is
-    asked for; a missing card raises). Without ``weights_path`` the net
-    keeps PyTorch's default initialisation.
+    Constructor arguments mirror the JAX package's ``RetinaFace``, so
+    ``cfg/detection/retina_face.json`` builds it as it is. Weights load from
+    the first of ``weights_path`` and ``checkpoint_path`` that exists (a
+    torch-keyed ``.npz`` or a torch ``.pth``); without one the net keeps
+    PyTorch's default initialisation. ``phase`` and ``backbone_path`` are
+    accepted and unused, as in the JAX package, and so is
+    ``planar_stage1``: it chose the JAX package's stage-1 formulation, and
+    here stage 1 always runs through kernel K6 on the card. ``keep_top_k``
+    caps the faces ``inference`` returns per image. ``dtype`` is the
+    compute dtype of the net (heads and decode stay f32) and ``device``
+    where it runs (the card unless ``"cpu"`` is asked for; a missing card
+    raises).
     """
 
-    def __init__(self, backbone_cfg="cfg_mnet", conf_thres=0.02,
-                 topk_bf_nms=5000, nms_thres=0.4, vis_thres=0.6,
-                 nms_cap=1024, weights_path=None, dtype=torch.float32,
-                 device="cuda"):
+    def __init__(self, backbone_cfg="cfg_mnet", phase="test",
+                 backbone_path=None, conf_thres=0.02, topk_bf_nms=5000,
+                 keep_top_k=750, nms_thres=0.4, vis_thres=0.6,
+                 checkpoint_path=None, nms_cap=1024, weights_path=None,
+                 dtype=torch.float32, planar_stage1=None, device="cuda"):
         if backbone_cfg not in ("cfg_mnet", cfg_mnet):
             raise NotImplementedError(
                 f"only cfg_mnet is ported, got {backbone_cfg!r}")
         self.cfg = cfg_mnet
+        self.phase = phase
         self.conf_thres = conf_thres
+        self.keep_top_k = keep_top_k
         self.nms_thres = nms_thres
         self.vis_thres = vis_thres
         self.nms_cap = min(nms_cap, topk_bf_nms)
@@ -227,8 +241,13 @@ class RetinaFace:
         self.device = select_device(device)
         check_set_caps(self.device.type, nms_cap=self.nms_cap)
         self.net = RetinaFaceNet(dtype)
-        if weights_path:
-            load_npz(self.net, weights_path)
+        paths = [p for p in (weights_path, checkpoint_path) if p]
+        found = [p for p in paths if os.path.exists(p)]
+        if found:
+            load_npz(self.net, found[0])
+        elif paths:
+            warnings.warn(f"RetinaFace: no weights at {paths}; the net keeps "
+                          "its random initialisation", stacklevel=2)
         self.net.to(self.device).eval()
         self._prior_cache = {}
 
@@ -272,6 +291,37 @@ class RetinaFace:
         idx, still = B.top_k_select(scores, valid, self.out_cap)
         return (_take(boxes, idx), torch.gather(scores, 1, idx),
                 _take(points, idx), still)
+
+
+    def inference(self, rgb_images, landmark=True):
+        """The JAX package's host API: an RGB image [H, W, 3] uint8 or a
+        list of equal-sized ones -> per image (boxes [n, 4], scores [n][,
+        landmarks [n, 5, 2]]) numpy lists, each image's faces by descending
+        score, at most ``keep_top_k``, at or above ``vis_thres``."""
+        single = not isinstance(rgb_images, (list, tuple)) and \
+            np.asarray(rgb_images).ndim == 3
+        if single:
+            rgb_images = [rgb_images]
+        imgs = np.stack([np.asarray(im, dtype=np.uint8) for im in rgb_images])
+        frames = torch.from_numpy(imgs).to(self.device)
+        boxes, scores, landms, valid = (
+            t.cpu().numpy() for t in self.infer_padded(frames))
+        ret_dets, ret_scores, ret_landms = [], [], []
+        for i in range(imgs.shape[0]):
+            v = valid[i]
+            bx, sc, pt = boxes[i][v], scores[i][v], landms[i][v]
+            order = np.argsort(sc)[::-1][:self.keep_top_k]
+            bx, sc, pt = bx[order], sc[order], pt[order]
+            chosen = sc >= self.vis_thres
+            ret_dets.append(bx[chosen])
+            ret_scores.append(sc[chosen])
+            ret_landms.append(pt[chosen])
+        if landmark:
+            return ret_dets, ret_scores, ret_landms
+        return ret_dets, ret_scores
+
+    def eval(self):
+        return self
 
 
 def _take(a, idx):

@@ -12,6 +12,7 @@ like with like.
   bilinear warp, border per tap, tap validity from the unclipped floor.
 """
 
+import math
 from functools import lru_cache
 
 import numpy as np
@@ -179,6 +180,14 @@ def warp_affine(img, m, out_hw, border_value=0.0):
 def fixed_image_standardization(x):
     """(x - 127.5) / 128."""
     return (x - 127.5) / 128.0
+
+
+def prewhiten(x):
+    """Mean/std whitening of ``x`` as one image: (x - mean) / std, the
+    population std floored at 1 / sqrt(x.numel())."""
+    mean = x.mean()
+    std = x.std(correction=0)
+    return (x - mean) / torch.clamp(std, min=1.0 / math.sqrt(x.numel()))
 
 
 IMAGENET_MEAN = (0.485, 0.456, 0.406)

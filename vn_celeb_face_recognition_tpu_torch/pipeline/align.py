@@ -1,8 +1,27 @@
-"""Canonical 5-point alignment templates per output size (the published
-ArcFace/insightface coordinates). Counterpart of the templates in
-``vn_celeb_face_recognition_tpu/pipeline/align.py``."""
+"""Face alignment: canonical 5-point templates per output size (the
+published ArcFace/insightface coordinates) and the similarity warp onto
+them. Counterpart of ``vn_celeb_face_recognition_tpu/pipeline/align.py``.
+
+* ``align_crops(crops, landmarks, template, out_size)``: every face of a
+  call in one warp. Each crop is zero-padded into an N x N f32 window (the
+  crop at its origin, N the largest crop side of the call), the Umeyama
+  similarity maps its landmarks onto the template, and one launch of K1's
+  windows form (``ops.warp.similarity_warp``) warps every window. The
+  padding is zero where ``warp_affine`` puts its zero border, so this is
+  the JAX package's per-crop warp exactly.
+* ``alignment(img, src, dst, w, h)``: the single-face API with the
+  reference's argument order, through ``align_crops``.
+
+Both round integer crops and clip them to 0-255 in their dtype, as the
+JAX package does (``torch.round`` rounds half to even, as ``np.round``).
+"""
 
 import numpy as np
+import torch
+
+from ..ops.similarity import umeyama_similarity
+from ..ops.warp import similarity_warp
+from ..utils.device import select_device
 
 center_point_dict = {
     "(96, 112)": np.array([
@@ -41,3 +60,49 @@ center_point_dict = {
         [141.4598, 184.4082],
     ], dtype=np.float32),
 }
+
+
+def pad_windows(crops):
+    """K crops [h_i, w_i, 3] of one dtype -> [K, N, N, 3] numpy windows,
+    each crop at its window's origin and zero elsewhere, N the largest
+    crop side."""
+    n = max(max(np.shape(c)[:2]) for c in crops)
+    windows = np.zeros((len(crops), n, n, 3), np.asarray(crops[0]).dtype)
+    for window, crop in zip(windows, crops):
+        h, w = np.shape(crop)[:2]
+        window[:h, :w] = crop
+    return windows
+
+
+def align_crops(crops, landmarks, template, out_size, device="cuda"):
+    """Warp each crop so its landmarks land on ``template``.
+
+    crops: K arrays [h_i, w_i, 3] (uint8 or float, one dtype); landmarks:
+    [K, 5, 2] in each crop's coordinates; template: [5, 2] in the output
+    face; out_size: (w, h). Runs on ``device`` (the card unless ``"cpu"``
+    is asked for). Returns [K, h, w, 3] numpy in the crops' dtype.
+    """
+    out_w, out_h = int(out_size[0]), int(out_size[1])
+    if len(crops) == 0:
+        return np.zeros((0, out_h, out_w, 3), np.uint8)
+    dev = select_device(device)
+    windows = pad_windows(crops)
+    dtype = windows.dtype
+    windows = torch.from_numpy(windows).to(dev).to(torch.float32)
+    lms = torch.as_tensor(np.asarray(landmarks, np.float32), device=dev)
+    tpl = torch.as_tensor(np.asarray(template, np.float32), device=dev)
+    mats = umeyama_similarity(lms, tpl)
+    # a square warp of side max(w, h), cut to h x w: each output pixel
+    # depends on its own coordinates only
+    out = similarity_warp(windows, mats, max(out_w, out_h))[:, :out_h, :out_w]
+    if np.issubdtype(dtype, np.integer):
+        out = torch.clamp(torch.round(out), 0, 255)
+    return out.cpu().numpy().astype(dtype)
+
+
+def alignment(cv_img, src, dst, dst_w, dst_h, device="cuda"):
+    """Warp ``cv_img`` [H, W, 3] so the detected landmarks ``dst`` land on
+    the canonical template ``src`` (the reference's argument order).
+    Returns [dst_h, dst_w, 3] in the image's dtype."""
+    return align_crops([np.asarray(cv_img)], np.asarray(dst)[None], src,
+                       (dst_w, dst_h), device=device)[0]
