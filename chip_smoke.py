@@ -87,7 +87,25 @@ Phases, one line of output each (a failed phase exits non-zero):
       against F.grid_sample), and the card against the CPU in f32 on 2
       frames: equal face counts and names, boxes within 1e-2 px, aligned
       faces within 1 level, embedding cosine >= 0.999, equal emotion
-      top-1 and probabilities within 5e-3.
+      top-1 and probabilities within 5e-3;
+  22. the CLIs under ``cli/`` through their entry points, inputs made in
+      memory (PNG only, nothing drawn): a ``cli-io`` line (g++, the IO
+      runtime's headers, cv2 on this machine); find_embedding.main on the
+      20 face PNGs (-bz 8 -w none: one .npz per file, cosine >= 0.999 to
+      a lone Encoder call); demo_image.recognize_image on a 640x640 frame
+      with MTCNN (seq_fd_vs_aln, par_fd_vs_aln) and RetinaFace + emotion
+      at 112 px (K7) and 160 px faces; demo_video.process_video over
+      chunk_frames of build_frames frames: (a) --fused_engine, MTCNN +
+      InceptionResnetV1 + MLP 1001 + emotion, bf16, 2 chunks of 64, and
+      (b) the flags of scripts/celeb_stat_dynamic_itv.sh (RetinaFace,
+      iresnet100, -nc 1021, local thresholds, emotion, -fidx 1 6 11 16;
+      --n_frames 16 for 120) on 200 frames at 25 fps, then
+      celeb_statistic's dynamic-interval tracker.json of (b). Rows, frame
+      indices, 4 names and boxes a row, tags; launches held to exact
+      per-run counts and K1-K8 each launched; the card against the CPU in
+      f32 on a chunk of 2 frames of (a) and (b) (equal names and tags,
+      boxes within 1e-4 normalised); median host ms a chunk, the CLI's
+      FPS line and stage means, one profiled chunk of each.
 
 Kernel phases check bf16 at the lines' shapes and f32 on a slice of
 them; exact kernels (K3, K4) are held with torch.equal. Every kernel is
@@ -103,7 +121,10 @@ in the repo.
 Usage, from the root of a checkout: python3 chip_smoke.py
 """
 
+import ast
+import contextlib
 import copy
+import io
 import json
 import os
 import re
@@ -1692,6 +1713,430 @@ def phase_recognition(torch, F, kernels, K1, dev, card, results):
           + "; ".join(parts))
 
 
+def cli_io_probe():
+    """Whether this machine has g++, the IO runtime's headers and cv2
+    (reported; nothing below depends on them: phase 22 decodes only PNG,
+    in Python, and draws nothing)."""
+    import shutil
+
+    gxx = shutil.which("g++")
+    parts = [f"g++ {'yes' if gxx else 'no'}"]
+    for header in ("jpeglib.h", "libavcodec/avcodec.h",
+                   "libavformat/avformat.h", "libswscale/swscale.h"):
+        found = gxx is not None and subprocess.run(
+            [gxx, "-x", "c++", "-E", "-o", os.devnull, "-"],
+            input=f"#include <{header}>\n", capture_output=True, text=True,
+            timeout=60).returncode == 0
+        parts.append(f"{header} {'yes' if found else 'no'}")
+    cv2 = subprocess.run([sys.executable, "-c", "import cv2"],
+                         capture_output=True, timeout=120).returncode == 0
+    parts.append(f"import cv2 {'yes' if cv2 else 'no'}")
+    phase("cli-io", "; ".join(parts))
+
+
+def cli_find_embedding(torch, dev, work):
+    """find_embedding.main on the repo's 20 face PNGs, -bz 8 -w none: one
+    .npz per file, named after it, each at cosine >= 0.999 to a lone
+    Encoder call on that file, resized as the CLI resizes it."""
+    import shutil
+
+    from vn_celeb_face_recognition_tpu_torch.cli import find_embedding as FE
+    from vn_celeb_face_recognition_tpu_torch.utils.frames import (
+        face_files,
+        read_png,
+        resize_bilinear,
+    )
+
+    src, out = os.path.join(work, "faces"), os.path.join(work, "emb")
+    os.makedirs(src)
+    files = face_files()
+    for f in files:
+        shutil.copy(f, src)
+    t0 = time.perf_counter()
+    n = FE.main(["-d", src, "-o", out, "-bz", "8", "-w", "none"])
+    secs = time.perf_counter() - t0
+    names = [os.path.basename(f) for f in files]
+    if n != len(files) or sorted(os.listdir(out)) != sorted(
+            f.split(".")[0] + ".npz" for f in names):
+        fail(f"cli find_embedding wrote {sorted(os.listdir(out))} for "
+             f"{len(files)} files")
+    enc = FE.build_encoder("InceptionResnetV1", "none", dev)
+    first = read_png(files[0])
+    cos_min, resized = 1.0, 0
+    for f, name in zip(files, names):
+        img = read_png(f)
+        if img.shape != first.shape:
+            img = resize_bilinear(img, (first.shape[1], first.shape[0]))
+            resized += 1
+        want = enc(img[None].astype(np.float32))[0]
+        with np.load(os.path.join(out, name.split(".")[0] + ".npz")) as z:
+            got = z["arr_0"]
+        cos_min = min(cos_min, float(got @ want / (np.linalg.norm(got)
+                                                   * np.linalg.norm(want))))
+    phase("cli-find-embedding", f"find_embedding.main -bz 8 -w none on the "
+          f"card: {n} .npz files, each named after its PNG ({resized} "
+          f"resized to {first.shape[1]}x{first.shape[0]}); min cosine "
+          f"{cos_min:.6f} to a lone Encoder call on each file (>= 0.999); "
+          f"{secs * 1e3:.1f} ms (host clock, encoder build included)")
+    if cos_min < 0.999:
+        fail("cli find_embedding: an embedding differs from its file's")
+
+
+def cli_rows(path):
+    import csv
+
+    with open(path, newline="") as fp:
+        return list(csv.DictReader(fp))
+
+
+def cli_check_rows(rows, counts, fps, what):
+    """A tracker.csv's rows: one per sampled frame, Frame_idx the frame
+    count and Time count / fps as the JAX CLI writes them, 4 names and 4
+    boxes in [0, 1] a row, 4 lists of EMOTION_TOPK tags."""
+    if [r["Frame_idx"] for r in rows] != [str(c) for c in counts]:
+        fail(f"{what}: Frame_idx {[r['Frame_idx'] for r in rows]}, want "
+             f"{counts}")
+    if [r["Time"] for r in rows] != [str(c / fps) for c in counts]:
+        fail(f"{what}: Time column differs from count / fps")
+    for r in rows:
+        names, boxes = (ast.literal_eval(r["Names"]),
+                        ast.literal_eval(r["Bboxes"]))
+        tags = ast.literal_eval(r["Emotion"])
+        if not (len(names) == len(boxes) == len(tags) == FACES_PER_FRAME):
+            fail(f"{what}: frame {r['Frame_idx']}: {len(names)} names, "
+                 f"{len(boxes)} boxes, {len(tags)} tag lists")
+        if not all(0.0 <= v <= 1.0 for b in boxes for v in b):
+            fail(f"{what}: frame {r['Frame_idx']}: a box outside [0, 1]")
+        if any(len(t) != EMOTION_TOPK for t in tags):
+            fail(f"{what}: frame {r['Frame_idx']}: tag lists {tags}")
+
+
+def cli_timed_chunks(torch, chunks, times):
+    """``chunks`` with the host time from handing out each chunk to the
+    request for the next one (the CLI's work on it) appended to ``times``."""
+    for chunk in chunks:
+        t0 = time.perf_counter()
+        yield chunk
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+
+
+def cli_drive(torch, kernels, DV, args, models, threshold, frames, fps,
+              fidx):
+    """process_video over ``frames`` (chunk_frames at ``fps``, ``-fidx``)
+    after one untimed run; returns (rows, chunk host seconds, launch
+    counts, the CLI's own printout)."""
+    def chunks(times=None):
+        it = iter(frames)
+        c = DV.chunk_frames(lambda: next(it, None), fps, args.n_frames, fidx)
+        return c if times is None else cli_timed_chunks(torch, c, times)
+
+    fs = (args.target_face_size, args.target_face_size)
+    tpl = DV.center_point_dict[str(fs)]
+    with contextlib.redirect_stdout(io.StringIO()):
+        DV.process_video(args, models, fs, tpl, threshold, fidx,
+                         track_bbox=True, chunks=chunks())
+    torch.cuda.synchronize()
+    times, log = [], io.StringIO()
+    kernels.reset_launch_counts()
+    with contextlib.redirect_stdout(log):
+        DV.process_video(args, models, fs, tpl, threshold, fidx,
+                         track_bbox=True, chunks=chunks(times))
+    counts = kernels.launch_counts()
+    return cli_rows(args.output_tracker), times, counts, log.getvalue()
+
+
+def cli_card_vs_cpu(DV, args, models, models_cpu, threshold, frames, infos,
+                    work, what):
+    """One chunk of 2 frames through process_video on the card and on the
+    CPU, f32: equal names and emotion tags, boxes within 1e-4
+    (normalised)."""
+    fs = (args.target_face_size, args.target_face_size)
+    tpl = DV.center_point_dict[str(fs)]
+    rows = []
+    for where, m in (("card", models), ("cpu", models_cpu)):
+        a = copy.copy(args)
+        a.output_tracker = os.path.join(work, f"{what}-{where}.csv")
+        a.compute_dtype = "float32"
+        with contextlib.redirect_stdout(io.StringIO()):
+            DV.process_video(a, m, fs, tpl, threshold, None, track_bbox=True,
+                             chunks=[(list(frames), infos)])
+        rows.append(cli_rows(a.output_tracker))
+    box_err, faces = 0.0, 0
+    for g, c in zip(*rows):
+        if g["Names"] != c["Names"] or g["Emotion"] != c["Emotion"]:
+            fail(f"cli card vs CPU {what}: frame {g['Frame_idx']}: names "
+                 f"{g['Names']} / {c['Names']}, or emotion tags differ")
+        gb, cb = ast.literal_eval(g["Bboxes"]), ast.literal_eval(c["Bboxes"])
+        if len(gb) != len(cb) or not gb:
+            fail(f"cli card vs CPU {what}: {len(gb)} boxes on the card, "
+                 f"{len(cb)} on the CPU")
+        box_err = max(box_err, float(np.abs(np.asarray(gb)
+                                            - np.asarray(cb)).max()))
+        faces += len(gb)
+    if len(rows[0]) != len(rows[1]) or box_err > 1e-4:
+        fail(f"cli card vs CPU {what}: max normalised box diff {box_err:.2e}"
+             " (atol 1e-4)")
+    return (f"{what}: {faces} faces, names and emotion tags equal, max "
+            f"normalised box diff {box_err:.2e} (atol 1e-4)")
+
+
+def phase_cli(torch, kernels, dev, card, results):
+    """22. The CLIs' entry points under the port (cli/), at full width on
+    the card, with inputs made in memory: find_embedding.main on the
+    repo's face PNGs; demo_image.recognize_image with MTCNN (both
+    methods) and RetinaFace + emotion at 112 px (K7) and 160 px faces;
+    demo_video.process_video over chunk_frames of build_frames frames, (a)
+    --fused_engine (MTCNN, InceptionResnetV1, MLP 1001, emotion,
+    --compute_dtype bfloat16, --n_frames 64, 2 chunks) and (b) the flags
+    of scripts/celeb_stat_dynamic_itv.sh (RetinaFace, iresnet100, -nc
+    1021, the 1,020-class table, local thresholds, par_fd_vs_aln,
+    --recog_emotion, --track_bbox, -fidx 1 6 11 16; --n_frames 16 in
+    place of 120, on 200 frames at 25 fps), then celeb_statistic's
+    dynamic-interval tracker.json of (b). Rows, frame indices, names,
+    boxes and tags checked; launches held to exact per-run counts, K1-K8
+    each launched; the card against the CPU in f32 on a chunk of 2
+    frames of (a) and (b); median host ms a chunk, the CLI's FPS line and
+    stage means, and one profiled chunk of each."""
+    import shutil
+    import tempfile
+
+    os.chdir(HERE)  # the CLIs' flags name files from the repo root
+    cli_io_probe()
+    os.makedirs(os.path.join(HERE, "build"), exist_ok=True)
+    work = tempfile.mkdtemp(prefix="cli_smoke_", dir=os.path.join(HERE,
+                                                                  "build"))
+    try:
+        cli_paths(torch, kernels, dev, card, results, work)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+
+def cli_paths(torch, kernels, dev, card, results, work):
+    """Phase 22's drives and checks (``phase_cli``), writing under
+    ``work``."""
+    from vn_celeb_face_recognition_tpu_torch.cli import celeb_statistic as CS
+    from vn_celeb_face_recognition_tpu_torch.cli import demo_image as DI
+    from vn_celeb_face_recognition_tpu_torch.cli import demo_video as DV
+    from vn_celeb_face_recognition_tpu_torch.models import build_detector
+    from vn_celeb_face_recognition_tpu_torch.pipeline import recognition as R
+    from vn_celeb_face_recognition_tpu_torch.utils.frames import (
+        build_frames,
+        face_files,
+        read_png,
+        resize_bicubic,
+    )
+    from vn_celeb_face_recognition_tpu_torch.utils.misc import (
+        convert_sec_to_max_time_quantity,
+    )
+
+    cli_find_embedding(torch, dev, work)
+
+    meta = "meta_data/face_recognition"
+    mtcnn_flags = ["-m", "", "-l2n", f"{meta}/label2name.txt", "-nc",
+                   str(REC_CLASSES), "--recog_emotion"]
+    retina_flags = ["-m", "", "-l2n", f"{meta}/label2name_1020_cls.txt",
+                    "-nc", "1021", "-det", "RetinaFace", "-dargs",
+                    "cfg/detection/retina_face.json", "-enc", "iresnet100",
+                    "-eargs", "cfg/embedding/iresnet100_enc.json",
+                    "--inference_method", "par_fd_vs_aln", "--recog_emotion"]
+    parser = CS.build_arg_parser()
+    sets = {}
+    for label, flags in (("mtcnn", mtcnn_flags), ("retinaface",
+                                                  retina_flags)):
+        with contextlib.redirect_stdout(io.StringIO()):
+            # on the card: -dv defaults to it
+            models = DI.setup_models(parser.parse_args(flags))
+        with torch.no_grad():  # logits of order 1: the top-k tags not tied
+            models[4].module.fc.weight.mul_(0.02)
+        sets[label] = models
+
+    # demo_image: one face PNG pasted into a 640x640 frame. RetinaFace
+    # runs with the default encoder (InceptionResnetV1 takes 160 px faces;
+    # iresnet100 only 112 px ones)
+    m = sets["mtcnn"]
+    sets["retinaface-image"] = (m[0], sets["retinaface"][1], *m[2:])
+    img = np.full((SIZE, SIZE, 3), 90, np.uint8)
+    img[170:470, 170:470] = resize_bicubic(read_png(face_files()[0]),
+                                           (300, 300))
+    without_k7 = dict(REC_LAUNCHES["retinaface"], emotion_stem=0)
+    parts, counted = [], {}
+    for what, label, flags, per_call in (
+            ("MTCNN seq_fd_vs_aln", "mtcnn",
+             ["--inference_method", "seq_fd_vs_aln"], MTCNN_LINE_LAUNCHES),
+            ("MTCNN par_fd_vs_aln", "mtcnn",
+             ["--inference_method", "par_fd_vs_aln"], MTCNN_LINE_LAUNCHES),
+            ("RetinaFace par_fd_vs_aln + emotion at 112 px",
+             "retinaface-image", ["--inference_method", "par_fd_vs_aln",
+                                  "-tg_fs", "112"],
+             REC_LAUNCHES["retinaface"]),
+            ("RetinaFace par_fd_vs_aln + emotion at 160 px",
+             "retinaface-image", ["--inference_method", "par_fd_vs_aln",
+                                  "-tg_fs", "160"], without_k7)):
+        models = sets[label]
+        args = parser.parse_args(mtcnn_flags + flags)
+        args.recog_emotion = "emotion" in what
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        names, boxes, tags, probs = DI.recognize_image(args, models, img)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        launches = kernels.launch_counts()
+        check_line_counts(launches, per_call, 1, f"cli demo_image {what}",
+                          results)
+        for k, n in launches.items():
+            counted[k] = counted.get(k, 0) + n
+        if len(names) != len(boxes) or not names:
+            fail(f"cli demo_image {what}: {len(names)} names, {len(boxes)} "
+                 "boxes")
+        if tags is not None and (np.asarray(tags).shape != (
+                len(names), EMOTION_TOPK) or not np.isfinite(probs).all()):
+            fail(f"cli demo_image {what}: emotion tags {tags}")
+        where = np.round(np.asarray(boxes, np.float64), 1).tolist()
+        parts.append(f"{what}: {names} at {where}"
+                     + ("" if tags is None else f", top tag {tags[0][0]}")
+                     + f", {ms:.1f} ms")
+    phase("cli-image", "demo_image.recognize_image on the card, one 640x640"
+          " frame, launches held to exact per-call counts (K7 only at 112 "
+          "px): " + "; ".join(parts))
+
+    # demo_video / celeb_statistic: (a) the fused engine, (b) production
+    frames_a = build_frames(2 * BATCH, SIZE, FACES_PER_FRAME)
+    frames_b = build_frames(200, SIZE, FACES_PER_FRAME)
+    fps, fidx_b = 25.0, [1, 6, 11, 16]
+    args_a = parser.parse_args(mtcnn_flags + [
+        "--fused_engine", "--compute_dtype", "bfloat16", "--n_frames",
+        str(BATCH), "--face_cap", "256,320", "-ot",
+        os.path.join(work, "a.csv"), "-of", os.path.join(work, "a_frames")])
+    args_b = parser.parse_args(retina_flags + [
+        "--track_bbox", "--local_thresholds", f"{meta}/local_thresholds.json",
+        "--statistic_mode", "dynamic_itv", "--n_frames", "16", "-fidx",
+        *map(str, fidx_b), "-ot", os.path.join(work, "b.csv"), "-of",
+        os.path.join(work, "b_frames"), "-jst", os.path.join(work, "b.json"),
+        "-nvi", "2", "-tap", "1"])
+    thresholds = read_json(args_b.local_thresholds)  # from the repo root
+    counts_b = [c for c in range(1, 201) if any(c % fps == i for i in fidx_b)]
+    emotion_run = {"emotion_stem": 1,
+                   "bottleneck_chain": REC_LAUNCHES["retinaface"][
+                       "bottleneck_chain"]}
+    paths = (("a", "fused engine, MTCNN + InceptionResnetV1 + emotion, "
+              "bf16", args_a, sets["mtcnn"], 0.0, frames_a, None,
+              list(range(1, 2 * BATCH + 1)),
+              dict(MTCNN_LINE_LAUNCHES, **emotion_run)),
+             ("b", "celeb_stat_dynamic_itv.sh flags, RetinaFace + "
+              "iresnet100 + emotion, f32", args_b, sets["retinaface"],
+              thresholds, frames_b, fidx_b, counts_b,
+              REC_LAUNCHES["retinaface"]))
+    lines, medians = [], {}
+    for key, what, args, models, thr, frames, fidx, counts, per_run in paths:
+        rows, times, launches, log = cli_drive(
+            torch, kernels, DV, args, models, thr, frames, fps, fidx)
+        cli_check_rows(rows, counts, fps, f"cli ({key})")
+        runs = launches["pnet_chain"] if key == "a" else len(times)
+        if runs < len(times):
+            fail(f"cli ({key}): {runs} engine runs for {len(times)} chunks")
+        check_line_counts(launches, per_run, runs, f"cli ({key})", results)
+        for k, n in launches.items():
+            counted[k] = counted.get(k, 0) + n
+        medians[key] = sorted(times)[len(times) // 2] * 1e3
+        fps_line = [ln for ln in log.splitlines() if ln.startswith("FPS")]
+        stages = "; ".join(" ".join(ln.split()) for ln in log.splitlines()
+                           if ln.strip().startswith("stage"))
+        lines.append(f"({key}) {what}: {len(rows)} rows of {len(frames)} "
+                     f"frames in {len(times)} chunks ({runs} runs), median "
+                     f"{medians[key]:.2f} ms a chunk (host clock, chunk ms "
+                     f"{[round(t * 1e3, 2) for t in times]}); "
+                     f"{fps_line[0] if fps_line else 'no FPS line'}; "
+                     f"{stages}; launches "
+                     f"{({k: n for k, n in launches.items() if n})}")
+    missing = [k for k in KERNEL_SOURCES if not counted.get(k)]
+    if missing:
+        fail(f"cli: kernels never launched through the CLIs: {missing}")
+    phase("cli-video", f"demo_video.process_video over chunk_frames of "
+          f"{SIZE}x{SIZE} frames with {FACES_PER_FRAME} faces each, on the "
+          f"card ({card}); K1-K8 each launched through the CLIs: "
+          + " | ".join(lines))
+
+    # celeb_statistic's dynamic-interval tracker.json of (b): as the CLI
+    # writes it (-ign Unknown), and with nothing ignored, every interval's
+    # names with their sighting counts, from the rows
+    table = CS.TrackerTable.read(args_b.output_tracker)
+    n_itv, per = args_b.n_video_intervals, len(table) // 2
+    found = []
+    for ignored in (args_b.ignored_name, ""):
+        with contextlib.redirect_stdout(io.StringIO()):
+            stats = CS.export_json_stat_dynamic_itv(
+                table, args_b.json_tracker, n_itv, args_b.n_time_appear,
+                ignored)
+        with open(args_b.json_tracker) as fp:
+            if json.load(fp) != json.loads(json.dumps(stats)):
+                fail("cli tracker.json: the file differs from the export")
+        for i in range(n_itv):
+            part = table.rows(i * per, len(table) if i == n_itv - 1
+                              else (i + 1) * per)
+            want = {}
+            for names in part["Names"]:
+                for n in ast.literal_eval(names):
+                    if n != ignored:
+                        want[n] = want.get(n, 0) + 1
+            entry = stats[str(i + 1)]
+            got = {n: len(v) for n, v in entry["celebrities"].items()}
+            times = part["Time"]
+            if got != want or entry["interval"] != (
+                    convert_sec_to_max_time_quantity(times[0]),
+                    convert_sec_to_max_time_quantity(times[-1])):
+                fail(f"cli tracker.json (-ign {ignored!r}) interval {i + 1}:"
+                     f" {entry['interval']} {got}, want {want}")
+            found.append(f"-ign {ignored!r} {entry['interval']}: {got}")
+    phase("cli-statistic", f"celeb_statistic dynamic_itv -nvi {n_itv} -tap "
+          f"{args_b.n_time_appear} on (b)'s tracker.csv ({len(table)} rows):"
+          " every name of an interval listed in it with its sighting count: "
+          + "; ".join(found))
+
+    # the card against the CPU, f32, one chunk of 2 frames of (a) and (b)
+    mtcnn_cfg = read_json("cfg", "detection", "mtcnn.json")
+    retina_cfg = read_json("cfg", "detection", "retina_face.json")
+
+    def on_cpu(models, detector):
+        names, _, enc, clf, emo, tags = models
+        return (names, detector, R.Encoder(copy.deepcopy(enc.module),
+                                           device="cpu"),
+                R.Classifier(copy.deepcopy(clf.module), device="cpu"),
+                R.EmotionModel(copy.deepcopy(emo.module), device="cpu"),
+                tags)
+
+    cmp = [
+        cli_card_vs_cpu(DV, args_a, sets["mtcnn"], on_cpu(
+            sets["mtcnn"], build_detector("MTCNN", device="cpu",
+                                          **mtcnn_cfg)),
+            0.0, frames_a[:2], [[c / fps, c] for c in (1, 2)], work, "a"),
+        cli_card_vs_cpu(DV, args_b, sets["retinaface"], on_cpu(
+            sets["retinaface"], build_detector("RetinaFace", device="cpu",
+                                               **retina_cfg)),
+            thresholds, frames_b[[c - 1 for c in counts_b[:2]]],
+            [[c / fps, c] for c in counts_b[:2]], work, "b")]
+    phase("cli-card-vs-cpu", "process_video, one chunk of 2 frames, f32: "
+          + "; ".join(cmp))
+
+    # one profiled chunk of each
+    for key, _, args, models, thr, frames, fidx, counts, _ in paths:
+        a = copy.copy(args)
+        a.output_tracker = os.path.join(work, f"{key}-profile.csv")
+        chunk = next(DV.chunk_frames(iter(frames).__next__, fps, a.n_frames,
+                                     fidx))
+        fs = (a.target_face_size, a.target_face_size)
+
+        def run(a=a, models=models, thr=thr, chunk=chunk, fs=fs):
+            with contextlib.redirect_stdout(io.StringIO()):
+                DV.process_video(a, models, fs,
+                                 DV.center_point_dict[str(fs)], thr, None,
+                                 track_bbox=True, chunks=[chunk])
+
+        profile_chunk(torch, run, medians[key], card,
+                      f"cli-profile ({key})", f"cli ({key})", results)
+
+
 def main():
     if not os.path.isdir(os.path.join(HERE, PKG)):
         fail(f"no {PKG} package beside {os.path.basename(__file__)}; run "
@@ -2071,6 +2516,10 @@ def main():
 
     # ---- 21. the recognition library -------------------------------------
     phase_recognition(torch, F, kernels, K1, dev, card, results)
+    torch.cuda.empty_cache()
+
+    # ---- 22. the CLIs ----------------------------------------------------
+    phase_cli(torch, kernels, dev, card, results)
 
     kernel_rows = []
     for kname, (src, replaces) in KERNEL_SOURCES.items():

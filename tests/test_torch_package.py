@@ -40,7 +40,9 @@ def test_port_imports_without_jax_or_flax():
                 "models.resnet_2_branch", "ops.planar_s1",
                 "ops.emotion_stem", "ops.bottleneck", "ops.nms", "ops.crop",
                 "ops.crops_net", "pipeline.recognition", "data.transforms",
-                "training.checkpoint"):
+                "training.checkpoint", "cli.demo_image", "cli.demo_video",
+                "cli.celeb_statistic", "cli.find_embedding", "native.loader",
+                "utils.io", "utils.misc"):
         assert f"{PKG}.{mod}" in mods
     code = (
         "import sys\n"
@@ -61,6 +63,21 @@ def test_port_imports_without_jax_or_flax():
                           timeout=120)
     assert proc.returncode == 0, proc.stderr
     assert proc.stdout.strip() == "ok"
+    # an entry point runs as a module with those packages absent
+    code = (
+        "import runpy, sys\n"
+        "for absent in ('jax', 'flax', 'pandas', 'PIL', 'cv2'):\n"
+        "    sys.modules[absent] = None\n"
+        f"sys.argv = ['demo_video', '--help']\n"
+        "try:\n"
+        f"    runpy.run_module('{PKG}.cli.demo_video', run_name='__main__')\n"
+        "except SystemExit as exc:\n"
+        "    assert exc.code == 0, exc.code\n")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO_ROOT,
+                          env=env, capture_output=True, text=True,
+                          timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    assert "--fused_engine" in proc.stdout and "--video_path" in proc.stdout
 
 
 def test_png_reader_equals_pil():

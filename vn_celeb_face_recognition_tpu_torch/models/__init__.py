@@ -62,6 +62,39 @@ def _no_head(what, **head):
             "configuration; the port builds the embedding encoder only")
 
 
+def _facenet_candidates(pretrained, weights_path=None):
+    if weights_path:
+        return [weights_path]
+    stem = _FACENET_FILES[pretrained]
+    return [os.path.join(_JAX_WEIGHTS, stem + ".npz"),
+            os.path.join(_torch_checkpoints(), stem + ".npz"),
+            os.path.join(_torch_checkpoints(), stem + ".pt")]
+
+
+def _iresnet_candidates(depth, weights_path=None, checkpoint_path=""):
+    stem = f"iresnet{depth}.npz"
+    return [c for c in (weights_path, checkpoint_path) if c] + [
+        os.path.join(_JAX_WEIGHTS, stem),
+        os.path.join(_torch_checkpoints(), stem)]
+
+
+def local_weights(name, pretrained):
+    """The local file that ``build_model(name, pretrained=...)`` loads for
+    an encoder's published weights (``pretrained`` a facenet dataset name
+    for InceptionResnetV1, True for the iresnets), or None when no such
+    file exists; nothing is downloaded."""
+    if name == "InceptionResnetV1":
+        if pretrained not in _FACENET_FILES:
+            raise ValueError('Pretrained models only exist for "vggface2" '
+                             'and "casia-webface"')
+        candidates = _facenet_candidates(pretrained)
+    elif name.startswith("iresnet") and name[7:].isdigit():
+        candidates = _iresnet_candidates(int(name[7:]))
+    else:
+        raise KeyError(f"no published weights for {name!r}")
+    return next((c for c in candidates if os.path.exists(c)), None)
+
+
 def _build_inception_resnet_v1(pretrained=None, classify=False,
                                num_classes=None, dropout_prob=0.6,
                                device=None, weights_path=None, dtype=None):
@@ -72,14 +105,10 @@ def _build_inception_resnet_v1(pretrained=None, classify=False,
     module = InceptionResnetV1(dtype=coerce_dtype(dtype))
     if pretrained is None:
         return _seeded(module)
-    stem = _FACENET_FILES[pretrained]
-    candidates = [weights_path] if weights_path else [
-        os.path.join(_JAX_WEIGHTS, stem + ".npz"),
-        os.path.join(_torch_checkpoints(), stem + ".npz"),
-        os.path.join(_torch_checkpoints(), stem + ".pt")]
+    candidates = _facenet_candidates(pretrained, weights_path)
     if not _load_first(module, candidates, skip=("logits.",)):
         print(f"Warning: pretrained='{pretrained}' requested but no local "
-              f"weights found (searched {[c for c in candidates if c]}); "
+              f"weights found (searched {candidates}); "
               "the encoder is randomly initialised. Convert the published "
               "torch checkpoint with tools/convert_weights.py.")
         _seeded(module)
@@ -96,10 +125,7 @@ def _build_iresnet(depth, pretrained=False, checkpoint_path="",
     module = IResNet(_DEPTH_LAYERS[depth], dtype=coerce_dtype(dtype))
     if not pretrained:
         return _seeded(module)
-    stem = f"iresnet{depth}.npz"
-    candidates = [c for c in (weights_path, checkpoint_path) if c] + [
-        os.path.join(_JAX_WEIGHTS, stem),
-        os.path.join(_torch_checkpoints(), stem)]
+    candidates = _iresnet_candidates(depth, weights_path, checkpoint_path)
     if not _load_first(module, candidates, skip=("logits.",)):
         print(f"Warning: pretrained iresnet{depth} requested but no local "
               "weights found; the encoder is randomly initialised. Convert "
@@ -180,4 +206,5 @@ __all__ = [
     "RetinaFaceNet",
     "build_model",
     "build_detector",
+    "local_weights",
 ]

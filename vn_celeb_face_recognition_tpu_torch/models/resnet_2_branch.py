@@ -11,14 +11,20 @@ returns (x_cls, x_proj): the JAX net's ``apply`` on
 normalisation and stem run as kernel K7 (``ops.emotion_stem``); layer1's
 blocks 1-2 and layer2's blocks 1-3 run as kernel K8 (``ops.bottleneck``);
 block 0 of each layer, layer3/4 and the heads are cuDNN/cuBLAS.
+
+``forward_normalized(x)`` is the JAX net's ``apply`` itself: it takes
+NHWC input already through that transform (faces of any size, resized to
+224 by the caller) and runs the stem as the net's own conv, BatchNorm,
+ReLU and max pool in cuDNN; the trunk after the stem is ``forward``'s.
 """
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from ..ops.bottleneck import bottleneck_chain
 from ..ops.emotion_stem import emotion_stem
-from .layers import linear
+from .layers import batch_norm, conv, linear
 from .resnet_common import ResLayer
 
 
@@ -37,8 +43,20 @@ class ResNet2Branch(nn.Module):
         self.fc = nn.Linear(2048, num_classes)
         self.proj = nn.Linear(2048, 300)
 
-    def forward(self, faces):
-        x = emotion_stem(self.conv1, self.bn1, faces, self.dtype)
+    def forward(self, faces, dtype=None):
+        """``dtype`` (default: the net's own) is the compute dtype of the
+        stem's output and so of the trunk after it."""
+        return self._trunk(emotion_stem(self.conv1, self.bn1, faces,
+                                        dtype or self.dtype))
+
+    def forward_normalized(self, x):
+        x = x.to(self.dtype).permute(0, 3, 1, 2)
+        x = F.max_pool2d(F.relu(batch_norm(self.bn1, conv(self.conv1, x))),
+                         3, 2, 1)
+        return self._trunk(x.permute(0, 2, 3, 1))
+
+    def _trunk(self, x):
+        """The stem's NHWC output -> (x_cls, x_proj)."""
         x = x.permute(0, 3, 1, 2)
         for layer in (self.layer1, self.layer2):
             x = layer[0](x)

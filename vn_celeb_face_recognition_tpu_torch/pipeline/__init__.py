@@ -20,6 +20,7 @@ from .recognition import (
     recognize_celeb,
     recognize_emotion,
     sequential_detect_and_align,
+    write_image,
 )
 
 __all__ = [
@@ -41,4 +42,5 @@ __all__ = [
     "Encoder",
     "Classifier",
     "EmotionModel",
+    "write_image",
 ]

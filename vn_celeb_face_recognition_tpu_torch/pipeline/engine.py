@@ -16,9 +16,10 @@ Counterpart of ``vn_celeb_face_recognition_tpu/pipeline/engine.py``
   4. standardisation, the embedding encoder and the MLP give
      log-probabilities, the class and its probability;
   5. optionally the emotion head: the 112 px faces resized to 224,
-     ImageNet-normalised and through the 2-branch net (the resize,
-     normalisation and stem in kernel K7, the layer1/layer2 tails in
-     kernel K8), softmax and the top ``emotion_topk`` tags;
+     ImageNet-normalised and through the 2-branch net in the compute
+     dtype (the resize, normalisation and stem in kernel K7, the
+     layer1/layer2 tails in kernel K8), softmax and the top
+     ``emotion_topk`` tags;
 
 and results scatter back to the padded layout. ``identify`` turns the
 padded outputs into per-frame names on the host.
@@ -46,7 +47,8 @@ class FusedRecognitionEngine:
       encoder: embedding ``nn.Module`` taking NCHW standardised faces.
       classifier: ``nn.Module`` mapping embeddings to log-probabilities.
       target_fs: aligned face size.
-      compute_dtype: dtype of the standardised faces fed to the encoder.
+      compute_dtype: dtype of the standardised faces fed to the encoder,
+        and the emotion net's compute dtype.
       face_window: side of the per-face window the warp samples from.
       face_cap: None (no compaction), an int budget, or a list of bucket
         budgets; ``process`` picks the smallest bucket covering the last
@@ -160,7 +162,7 @@ class FusedRecognitionEngine:
         prob = torch.exp(torch.gather(logp, 1, pred[:, None])[:, 0])
         per_face = {"pred": pred, "prob": prob, "embeddings": emb}
         if self.emotion is not None:
-            logits, _ = self.emotion(faces)
+            logits, _ = self.emotion(faces, self.compute_dtype)
             eprob = torch.softmax(logits.to(torch.float32), dim=-1)
             # stable descending sort: ties keep the lower index first,
             # as jax.lax.top_k does (torch.topk leaves them unordered)

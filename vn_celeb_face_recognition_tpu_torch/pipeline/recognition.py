@@ -15,7 +15,7 @@ with its signatures and numpy return types:
     form);
   * ``recognize_celeb`` embeds and classifies every aligned face of a call
     in one batch; ``recognize_emotion`` runs the 2-branch emotion net on
-    the 112 px faces (K7 and K8);
+    faces (K7 for 112 px faces, and K8);
   * ``identify_person`` takes the JAX package's name table (anything
     indexed as ``df["name"][df["label"] == label]``, a pandas DataFrame for
     one, which this module does not import) or a plain ``{label: name}``
@@ -104,11 +104,12 @@ class Classifier(_Apply):
 class EmotionModel(_Apply):
     """2-branch emotion model wrapper; returns (logits, projection).
 
-    The port's net takes the 112 px aligned faces and computes the
-    ``emotion_inf`` transform (the 224 px area resize and the ImageNet
-    normalisation) inside its stem, kernel K7. So ``transform`` must be
-    ``emotion_inf`` (``recognize_emotion`` sets it), and faces of any other
-    size are refused."""
+    ``transform`` must be ``emotion_inf`` (``recognize_emotion`` sets it):
+    the 224 px area resize and the ImageNet normalisation, as in the JAX
+    package. For 112 px faces the net computes that transform inside its
+    stem, kernel K7. Faces of any other size go through the transform on
+    the device, then the net's own stem in cuDNN
+    (``ResNet2Branch.forward_normalized``)."""
 
     FACE_SIZE = 112
 
@@ -116,17 +117,19 @@ class EmotionModel(_Apply):
     def forward(self, x):
         if self.transform is not transform_emotion_inf:
             raise ValueError(
-                "EmotionModel computes the emotion_inf transform inside its "
-                "stem (kernel K7); set transform to "
+                "EmotionModel runs the emotion_inf transform (inside its "
+                "stem, kernel K7, for 112 px faces); set transform to "
                 "transforms_dict['emotion_inf'], got "
                 f"{getattr(self.transform, '__name__', self.transform)!r}")
         x = np.asarray(x, np.float32)
-        if x.shape[1:] != (self.FACE_SIZE, self.FACE_SIZE, 3):
-            raise ValueError(
-                f"EmotionModel takes [K, {self.FACE_SIZE}, {self.FACE_SIZE}, "
-                f"3] faces (the stem's 112 -> 224 upsample), got "
-                f"{list(x.shape)}; other face sizes are not ported yet")
-        logits, proj = self.module(torch.from_numpy(x).to(self.device))
+        if x.ndim != 4 or x.shape[3] != 3:
+            raise ValueError(f"EmotionModel takes [K, H, W, 3] faces, got "
+                             f"{list(x.shape)}")
+        x = torch.from_numpy(x).to(self.device)
+        if x.shape[1:3] == (self.FACE_SIZE, self.FACE_SIZE):
+            logits, proj = self.module(x)
+        else:
+            logits, proj = self.module.forward_normalized(self.transform(x))
         return (logits.to(torch.float32).cpu().numpy(),
                 proj.to(torch.float32).cpu().numpy())
 
@@ -301,6 +304,15 @@ def draw_emotions(image, bboxes, emotion_tags, emotion_percent):
                 cv2.LINE_AA,
             )
     return image
+
+
+def write_image(path, bgr_image):
+    """Write a drawn BGR image with ``cv2.imwrite`` (the format by the
+    file's extension); raises when cv2 cannot write it."""
+    import cv2
+
+    if not cv2.imwrite(str(path), bgr_image):
+        raise OSError(f"cv2.imwrite could not write {path}")
 
 
 # ---------------------------------------------------------------------------

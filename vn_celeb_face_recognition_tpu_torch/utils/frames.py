@@ -1,7 +1,8 @@
-"""Images without PIL: a zlib + numpy PNG reader and writer, numpy
-copies of PIL's bicubic and bilinear resizes, and ``build_frames`` (a
-mirror of ``bench.build_frames``: real face crops pasted on a flat
-background).
+"""Images without PIL: a zlib + numpy PNG reader and writer,
+``read_image`` (PNG here, JPEG through the IO runtime), numpy copies of
+PIL's bicubic and bilinear resizes and of the runtime's bilinear resize,
+and ``build_frames`` (a mirror of ``bench.build_frames``: real face crops
+pasted on a flat background).
 """
 
 import glob
@@ -62,20 +63,30 @@ def _unfilter(rows, bpp):
     return out
 
 
+# samples a pixel by PNG colour type: grey, RGB, palette index, grey +
+# alpha, RGBA
+_PNG_CHANNELS = {0: 1, 2: 3, 3: 1, 4: 2, 6: 4}
+
+
 def read_png(path):
-    """Decode an 8-bit RGB non-interlaced PNG (the repo's face images)
-    to [H, W, 3] uint8."""
+    """Decode a non-interlaced 8-bit PNG to [H, W, 3] uint8 RGB, as
+    ``cv2.imread(path, cv2.IMREAD_COLOR)`` decodes it (then BGR -> RGB):
+    grey is replicated into the three channels, a palette index is looked
+    up, and alpha (and a tRNS chunk) is dropped, not composited. Adam7
+    interlace and bit depths other than 8 raise ``ValueError``."""
     with open(path, "rb") as fh:
         data = fh.read()
     if data[:8] != _PNG_SIG:
         raise ValueError(f"{path}: not a PNG file")
-    pos, idat, header = 8, [], None
+    pos, idat, header, palette = 8, [], None, None
     while pos + 8 <= len(data):
         length, ctype = struct.unpack(">I4s", data[pos:pos + 8])
         chunk = data[pos + 8:pos + 8 + length]
         pos += 12 + length
         if ctype == b"IHDR":
             header = struct.unpack(">IIBBBBB", chunk)
+        elif ctype == b"PLTE":
+            palette = np.frombuffer(chunk, np.uint8).reshape(-1, 3)
         elif ctype == b"IDAT":
             idat.append(chunk)
         elif ctype == b"IEND":
@@ -83,14 +94,45 @@ def read_png(path):
     if header is None:
         raise ValueError(f"{path}: no IHDR chunk")
     w, h, depth, color, _, _, interlace = header
-    if depth != 8 or color != 2 or interlace != 0:
+    if interlace != 0:
+        raise ValueError(f"{path}: Adam7-interlaced PNGs are not supported")
+    if depth != 8 or color not in _PNG_CHANNELS:
         raise ValueError(
             f"{path}: unsupported PNG (bit depth {depth}, colour type "
-            f"{color}, interlace {interlace}); 8-bit RGB non-interlaced "
+            f"{color}); 8-bit grey, grey + alpha, palette, RGB and RGBA "
             "only")
+    ch = _PNG_CHANNELS[color]
     raw = np.frombuffer(zlib.decompress(b"".join(idat)), dtype=np.uint8)
-    rows = raw[:h * (1 + w * 3)].reshape(h, 1 + w * 3)
-    return _unfilter(rows, 3).reshape(h, w, 3)
+    if raw.size < h * (1 + w * ch):
+        raise ValueError(f"{path}: truncated image data")
+    rows = raw[:h * (1 + w * ch)].reshape(h, 1 + w * ch)
+    px = _unfilter(rows, ch).reshape(h, w, ch)
+    if color == 3:
+        if palette is None:
+            raise ValueError(f"{path}: palette PNG without a PLTE chunk")
+        if int(px.max(initial=0)) >= len(palette):
+            raise ValueError(f"{path}: palette index out of range")
+        return palette[px[..., 0]]
+    if ch <= 2:
+        return np.repeat(px[..., :1], 3, axis=2)
+    return np.ascontiguousarray(px[..., :3])
+
+
+def read_image(path):
+    """Decode an image file to [H, W, 3] uint8 RGB. The decoder is chosen by
+    the file's signature: PNG by ``read_png``, JPEG by the port's IO runtime
+    (``native.loader.decode_jpeg_file``, libjpeg); any other file raises
+    ``ValueError``."""
+    with open(path, "rb") as fh:
+        head = fh.read(8)
+    if head == _PNG_SIG:
+        return read_png(path)
+    if head[:2] == b"\xff\xd8":
+        from ..native.loader import decode_jpeg_file
+
+        return decode_jpeg_file(path)
+    raise ValueError(f"{path}: neither a PNG nor a JPEG file (signature "
+                     f"{head.hex()})")
 
 
 def _png_chunk(ctype, data):
@@ -187,6 +229,37 @@ def resize_bilinear(img, size):
     """The same with PIL's triangle filter (``Image.BILINEAR``, support
     1), as ``Image.fromarray(img).resize(size, Image.BILINEAR)``."""
     return _resize(img, size, _bilinear, 1.0)
+
+
+def _half_pixel_taps(in_size, out_size):
+    """Source rows (or columns) and weights of one output axis, in float32
+    as the runtime's C++ computes them."""
+    scale = np.float32(in_size) / np.float32(out_size)
+    f = (np.arange(out_size, dtype=np.float32) + np.float32(0.5)) * scale
+    f = np.maximum(f - np.float32(0.5), np.float32(0.0))
+    i0 = f.astype(np.int64)
+    i1 = np.minimum(i0 + 1, in_size - 1)
+    return i0, i1, f - i0.astype(np.float32)
+
+
+def resize_bilinear_half_pixel(img, size):
+    """[H, W, 3] uint8 -> [size[1], size[0], 3] uint8, bit-exact to the JAX
+    package's native runtime (``vn_resize_bilinear``, the resize of
+    ``find_embedding --image_size``): half-pixel centres clamped at 0, two
+    taps per axis, every product and sum rounded to float32, then
+    ``+ 0.5`` and truncation."""
+    tw, th = size
+    src = np.asarray(img, np.float32)
+    y0, y1, wy = _half_pixel_taps(src.shape[0], th)
+    x0, x1, wx = _half_pixel_taps(src.shape[1], tw)
+    one = np.float32(1.0)
+    wx, wy = wx[None, :, None], wy[:, None, None]
+
+    def row(y):
+        return src[y][:, x0] * (one - wx) + src[y][:, x1] * wx
+
+    v = row(y0) * (one - wy) + row(y1) * wy
+    return (v + np.float32(0.5)).astype(np.uint8)
 
 
 def face_files():
