@@ -106,6 +106,23 @@ Phases, one line of output each (a failed phase exits non-zero):
       f32 on a chunk of 2 frames of (a) and (b) (equal names and tags,
       boxes within 1e-4 normalised); median host ms a chunk, the CLI's
       FPS line and stage means, one profiled chunk of each.
+  23. the trainers through ``cli.train.main`` and ``cli.eval.main``,
+      datasets written from a seed: (a) cfg/train_cfg_emb_classify.json
+      (MLP 512-2048-1000 on 1,000 classes x 6 .npz embeddings; epochs cut
+      to 3, save_period to 3): median ms a step (CUDA events), samples/s,
+      epoch wall, the busy share of a profiled epoch, the loss falling, no
+      kernel launched; one epoch at dropout 0 on the card against the CPU
+      (per-batch losses within rtol 1e-4, weights within 1e-3); cli.eval's
+      result.csv, one row per validation sample. (b)
+      cfg/train_cfg_aug_emb_classify.json (facenet_aug through K1's
+      frames form, a frozen iresnet100 in f32, MLP 512-2048-1001, batch 64,
+      16 classes x 40 faces of 112 px; epochs cut to 2): median ms a step,
+      images/s, StageTimer means, the busy share, exactly one K1 launch a
+      step; K1 at this shape equal to its plain version and timed against
+      it and its bound, its tile boxes against footprint_boxes; the
+      augmented batch card vs CPU (torch.equal before standardisation), the
+      encoder's embeddings card vs CPU (cosine >= 0.999), the encoder's
+      weights unchanged and without gradients.
 
 Kernel phases check bf16 at the lines' shapes and f32 on a slice of
 them; exact kernels (K3, K4) are held with torch.equal. Every kernel is
@@ -2137,6 +2154,532 @@ def cli_paths(torch, kernels, dev, card, results, work):
                       f"cli-profile ({key})", f"cli ({key})", results)
 
 
+# phase 23 (training): the embedding classifier of
+# cfg/train_cfg_emb_classify.json on TRAIN_CLASSES x (5 + 1) embeddings,
+# and the online-aug trainer of cfg/train_cfg_aug_emb_classify.json on
+# AUG_CLASSES x AUG_PER_CLASS 112 px faces; epochs cut as stated
+TRAIN_CLASSES, TRAIN_PER_CLASS, TRAIN_EPOCHS = 1000, 5, 3
+AUG_CLASSES, AUG_PER_CLASS, AUG_VAL, AUG_EPOCHS = 16, 40, 4, 2
+# card against CPU: faces through the frozen iresnet100 on the CPU
+AUG_CPU_FACES = 8
+
+
+@contextlib.contextmanager
+def patched(cls, name, wrap):
+    """``cls.name`` replaced by ``wrap(original)`` inside the block."""
+    orig = cls.__dict__[name]
+    setattr(cls, name, wrap(orig))
+    try:
+        yield
+    finally:
+        setattr(cls, name, orig)
+
+
+@contextlib.contextmanager
+def train_probes(torch, trainer_mod, timer=None):
+    """Inside the block, every trainer's steps are timed with CUDA events
+    and its per-step losses and epoch logs and host wall times recorded
+    (the entry points run unchanged). With a ``StageTimer``, the step's
+    stages (augment, encode, mlp_step) are timed on it too, each waiting
+    for the device at its end."""
+    rec = {"steps": [], "losses": [], "epochs": []}
+
+    def step(orig):
+        def timed(self, batch):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = orig(self, batch)
+            end.record()
+            rec["steps"].append((start, end))
+            rec["losses"].append(out[0])
+            return out
+        return timed
+
+    def epoch(orig):
+        def timed(self, n):
+            t0 = time.perf_counter()
+            log = orig(self, n)
+            torch.cuda.synchronize()
+            rec["epochs"].append((n, time.perf_counter() - t0, dict(log)))
+            return log
+        return timed
+
+    def stage(name):
+        def wrap(orig):
+            def timed(self, *args, **kwargs):
+                label = name
+                if name == "augment" and not kwargs.get("train", True):
+                    label = "transform"
+                with timer.stage(label):
+                    out = orig(self, *args, **kwargs)
+                    torch.cuda.synchronize()
+                return out
+            return timed
+        return wrap
+
+    with contextlib.ExitStack() as stack:
+        stack.enter_context(patched(trainer_mod.BaseTrainer, "_train_step",
+                                    step))
+        stack.enter_context(patched(trainer_mod.ClassificationTrainer,
+                                    "_train_epoch", epoch))
+        if timer is not None:
+            for cls, method, name in (
+                    (trainer_mod.BaseTrainer, "_prepare_input", "augment"),
+                    (trainer_mod.AugClassificationTrainer, "_encode",
+                     "encode"),
+                    (trainer_mod.BaseTrainer, "_update", "mlp_step")):
+                stack.enter_context(patched(cls, method, stage(name)))
+        yield rec
+
+
+def step_ms(rec):
+    return sorted(s.elapsed_time(e) for s, e in rec["steps"])
+
+
+def busy_ms(torch, run):
+    """Device time of ``run()`` under torch.profiler (the sum over device
+    events, the copies on the loader's side stream included) and the five
+    largest device functions."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        run()
+        torch.cuda.synchronize()
+    device = [e for e in prof.key_averages()
+              if e.device_type == DeviceType.CUDA
+              and not getattr(e, "is_user_annotation", False)]
+    total = sum(e.self_device_time_total for e in device) / 1e3
+    if total <= 0.0:
+        fail("torch.profiler recorded no device time")
+    top = sorted(device, key=lambda e: -e.self_device_time_total)[:5]
+    return total, ", ".join(
+        f"{e.key[:40]} {e.self_device_time_total / 1e3:.2f}" for e in top)
+
+
+def steps_in_memory(torch, trainer_mod, trainer, timer=None):
+    """One pass of ``trainer``'s train batches, all moved to the card
+    first, so no reader thread runs beside the steps: the sorted CUDA-event
+    ms of each ``_train_step`` (each stage timed by ``timer`` if given)."""
+    batches = [{k: torch.from_numpy(v).to(trainer.device)
+                if isinstance(v, np.ndarray) else v for k, v in b.items()}
+               for b in trainer.train_loader]
+    torch.cuda.synchronize()
+    with train_probes(torch, trainer_mod, timer) as rec:
+        for batch in batches:
+            trainer._train_step(batch)
+            torch.cuda.synchronize()
+    return step_ms(rec)
+
+
+def train_rate(n_train, walls):
+    """Train samples a second over the median epoch wall (train and
+    validation, loader waits included), and that median in s."""
+    wall = float(np.median(walls))
+    return n_train / wall, wall
+
+
+def write_config(cfg, work, name):
+    path = os.path.join(work, name)
+    with open(path, "w") as fp:
+        json.dump(cfg, fp)
+    return path
+
+
+def emb_dataset(work):
+    """TRAIN_CLASSES x (TRAIN_PER_CLASS + 1) .npz embeddings (the layout
+    find_embedding writes) around seeded class centres; the last of each
+    class is for validation."""
+    emb = os.path.join(work, "train_emb")
+    os.makedirs(emb)
+    gen = np.random.default_rng(23)
+    centres = gen.normal(size=(TRAIN_CLASSES, 512)).astype(np.float32)
+    train, val = {}, {}
+    for c in range(TRAIN_CLASSES):
+        names = []
+        for j in range(TRAIN_PER_CLASS + 1):
+            v = centres[c] + 0.5 * gen.normal(size=512).astype(np.float32)
+            np.savez(os.path.join(emb, f"{c}_{j}.npz"), v)
+            names.append(f"{c}_{j}.png")
+        train[str(c)], val[str(c)] = names[:-1], names[-1:]
+    for name, manifest in (("train.json", train), ("val.json", val)):
+        with open(os.path.join(work, name), "w") as fp:
+            json.dump(manifest, fp)
+    return emb
+
+
+def face_dataset(work):
+    """AUG_CLASSES x AUG_PER_CLASS 112 px PNG faces: the repo's face PNGs
+    resized, each class one face under seeded brightness, shift and
+    noise; AUG_VAL a class for validation."""
+    from vn_celeb_face_recognition_tpu_torch.utils.frames import (
+        face_files,
+        read_png,
+        resize_bilinear,
+        write_png,
+    )
+
+    img_dir = os.path.join(work, "train")
+    os.makedirs(img_dir)
+    gen = np.random.default_rng(24)
+    bases = [resize_bilinear(read_png(f), (124, 124)).astype(np.float32)
+             for f in face_files()[:AUG_CLASSES]]
+    train, val = {}, {}
+    for c in range(AUG_CLASSES):
+        names = []
+        for j in range(AUG_PER_CLASS):
+            y, x = gen.integers(0, 13, 2)
+            img = bases[c][y:y + 112, x:x + 112] * gen.uniform(0.7, 1.3) \
+                + gen.normal(0, 6, (112, 112, 3))
+            write_png(os.path.join(img_dir, f"{c}_{j}.png"),
+                      np.clip(np.round(img), 0, 255).astype(np.uint8))
+            names.append(f"{c}_{j}.png")
+        train[str(c)] = names[:-AUG_VAL]
+        val[str(c)] = names[-AUG_VAL:]
+    for name, manifest in (("train.json", train), ("val.json", val)):
+        with open(os.path.join(work, name), "w") as fp:
+            json.dump(manifest, fp)
+    return img_dir
+
+
+def phase_train(torch, kernels, K1, dev, card, results):
+    """23. The port's trainers through their entry points
+    (``cli.train.main``, ``cli.eval.main``), datasets written under a
+    temp dir from a seed. The rate of each is train samples over the
+    median epoch wall (train and validation, loader waits included), with
+    the median ms a step (CUDA events) beside it. (a)
+    cfg/train_cfg_emb_classify.json as it stands (MLP 512 -> 2048 ->
+    1000, Adam 1e-4 wd 1e-4, batch 64, val 32, plateau schedule) on 1,000
+    classes x 5 + 1 embeddings; cut: epochs 1000 -> 3, save_period 25 ->
+    3 (so the cut run writes its checkpoint). The rate, the step, the
+    busy share of one profiled epoch, the loss falling epoch 1 -> 3, no
+    kernel launched; gate: one epoch with dropout_prob 0 on the card
+    against the CPU, per-batch losses within rtol 1e-4, final weights
+    within 1e-3; cli.eval on the checkpoint written, one result.csv row
+    per validation sample. (b) cfg/train_cfg_aug_emb_classify.json as it
+    stands (facenet_aug, iresnet100 seeded as no local weights exist, MLP
+    512 -> 2048 -> 1001, f32, batch 64) on 16 classes x 40 faces of 112
+    px; cut: epochs 1000 -> 2. The rate, the step, StageTimer means
+    (augment, encode, mlp_step), the busy share, one K1 launch a step
+    (held exactly), K1 at this shape against its plain version
+    (torch.equal) and bound, its tile boxes against footprint_boxes;
+    gates: the augmented batch on the card against the CPU for the same
+    drawn parameters (torch.equal before standardisation), the encoder's
+    embeddings against the CPU's (cosine >= 0.999), the encoder's weights
+    unchanged and without gradients, and the MLP step of one epoch at
+    dropout 0 on the card against the CPU on the same embeddings
+    (per-batch losses within rtol 1e-4, MLP weights within 1e-3)."""
+    import logging
+    import shutil
+    import tempfile
+
+    os.makedirs(os.path.join(HERE, "build"), exist_ok=True)
+    work = tempfile.mkdtemp(prefix="train_smoke_",
+                            dir=os.path.join(HERE, "build"))
+    # the trainers log to stdout and info.txt: both go to this file
+    log = open(os.path.join(work, "trainer.log"), "w")
+    try:
+        train_emb_classifier(torch, kernels, dev, card, work, log)
+        train_online_aug(torch, kernels, K1, dev, card, results, work, log)
+    finally:
+        root = logging.getLogger()
+        for handler in list(root.handlers):
+            root.removeHandler(handler)
+            handler.close()
+        log.close()
+        shutil.rmtree(work, ignore_errors=True)
+
+
+def train_emb_classifier(torch, kernels, dev, card, work, log):
+    """Phase 23 (a)."""
+    import csv
+
+    from vn_celeb_face_recognition_tpu_torch.cli import eval as cli_eval
+    from vn_celeb_face_recognition_tpu_torch.cli import train as cli_train
+    from vn_celeb_face_recognition_tpu_torch.training import trainer as TR
+
+    t0 = time.perf_counter()
+    emb = emb_dataset(work)
+    data_s = time.perf_counter() - t0
+    cfg = read_json("cfg", "train_cfg_emb_classify.json")
+    for split, manifest in (("train_dataset", "train.json"),
+                            ("val_dataset", "val.json")):
+        cfg[split]["args"] = {"data_dir": emb,
+                              "label_file": os.path.join(work, manifest)}
+    cfg["trainer"].update(epochs=TRAIN_EPOCHS, save_period=TRAIN_EPOCHS,
+                          save_dir=os.path.join(work, "saved_a"))
+    path = write_config(cfg, work, "train_a.json")
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    with train_probes(torch, TR) as rec, contextlib.redirect_stdout(log):
+        trainer = cli_train.main(["-c", path])
+    counts = kernels.launch_counts()
+    if any(counts.values()):
+        fail(f"train (a) launched kernels {counts}; its path has none")
+    if trainer.device.type != "cuda":
+        fail(f"train (a) ran on {trainer.device}")
+    ms = step_ms(rec)
+    n_steps = len(trainer.train_loader) * TRAIN_EPOCHS
+    if len(ms) != n_steps or [e for e, _, _ in rec["epochs"]] != [1, 2, 3]:
+        fail(f"train (a): {len(ms)} steps, epochs {rec['epochs']}")
+    losses = [lg["neg_log_llhood"] for _, _, lg in rec["epochs"]]
+    if not losses[-1] < losses[0] or not all(np.isfinite(losses)):
+        fail(f"train (a): the loss did not fall: {losses}")
+    walls = [s for _, s, _ in rec["epochs"]]
+    n_train = len(trainer.train_loader.dataset)
+    bs = trainer.train_loader.batch_size
+    median = ms[len(ms) // 2]
+    rate, epoch_s = train_rate(n_train, walls)
+    busy, top = busy_ms(torch, lambda: trainer._train_epoch(TRAIN_EPOCHS + 1))
+    mem = steps_in_memory(torch, TR, trainer)
+    phase("train-emb", f"cfg/train_cfg_emb_classify.json through "
+          f"cli.train.main on the card: MLP 512-2048-1000, Adam 1e-4, "
+          f"batch {bs}, {TRAIN_CLASSES} classes x {TRAIN_PER_CLASS} train + 1 "
+          f"val .npz (written in {data_s:.1f} s); cut: epochs 1000 -> "
+          f"{TRAIN_EPOCHS}, save_period 25 -> {TRAIN_EPOCHS}. {rate:.1f} "
+          f"train samples/s = {n_train} over the median epoch wall "
+          f"{epoch_s:.3f} s (train + val, loader waits included; epochs "
+          f"{', '.join(f'{s:.3f}' for s in walls)} s); median step "
+          f"{median:.3f} ms (CUDA events, {len(ms)} steps; min {ms[0]:.3f}, "
+          f"max {ms[-1]:.3f}); train loss by epoch "
+          f"{', '.join(f'{v:.4f}' for v in losses)}, val accuracy "
+          f"{rec['epochs'][-1][2]['val_accuracy']:.4f}; one profiled epoch: "
+          f"device busy {busy:.2f} ms = {busy / 1e3 / epoch_s:.1%} of the "
+          f"median epoch wall (top: {top}); with the batches on the "
+          f"card beforehand (no reader thread): median step "
+          f"{mem[len(mem) // 2]:.3f} ms; kernels launched: none ({card})")
+
+    # the card against the CPU: one epoch, dropout 0, the same weights
+    cfg["model"]["args"]["dropout_prob"] = 0.0
+    cfg["trainer"].update(epochs=1, save_period=100,
+                          save_dir=os.path.join(work, "saved_gate"))
+    runs = {}
+    for where in (dev, "cpu"):
+        with train_probes(torch, TR) as rec, \
+                contextlib.redirect_stdout(log):
+            t, _, _ = cli_train.build_trainer_from_config(
+                copy.deepcopy(cfg), device=where)
+            t.train()
+        runs[str(where)] = (rec["losses"], t.model.state_dict())
+    (gl, gw), (cl, cw) = runs[str(dev)], runs["cpu"]
+    gl, cl = np.asarray(gl), np.asarray(cl)
+    loss_rel = float(np.max(np.abs(gl - cl) / np.abs(cl)))
+    w_err = max(float((gw[k].cpu() - cw[k]).abs().max()) for k in cw)
+    phase("train-emb-card-vs-cpu", f"one epoch, dropout 0, from the same "
+          f"seeded weights: {len(gl)} per-batch losses, max rel diff "
+          f"{loss_rel:.2e} (rtol 1e-4); final weights max abs diff "
+          f"{w_err:.2e} (atol 1e-3)")
+    if len(gl) != len(cl) or loss_rel > 1e-4 or w_err > 1e-3:
+        fail("train (a) card vs CPU outside tolerance")
+
+    # cli.eval on the checkpoint the cut run wrote
+    ckpt = os.path.join(trainer.save_dir,
+                        f"checkpoint-epoch{TRAIN_EPOCHS}.ckpt")
+    cfg = read_json("cfg", "train_cfg_emb_classify.json")
+    cfg["train_dataset"]["args"] = cfg["val_dataset"]["args"] = {
+        "data_dir": emb, "label_file": os.path.join(work, "val.json")}
+    cfg["trainer"].update(resume_path=ckpt, save_result=True,
+                          save_dir=os.path.join(work, "saved_eval"))
+    with contextlib.redirect_stdout(log):
+        ev = cli_eval.main(["-c", write_config(cfg, work, "eval_a.json")])
+    with open(os.path.join(ev.save_dir, "result.csv"), newline="") as fp:
+        rows = list(csv.reader(fp))
+    hits = sum(r[1] == r[2] for r in rows[1:])
+    phase("train-emb-eval", f"cli.eval.main on {os.path.basename(ckpt)}: "
+          f"result.csv {len(rows) - 1} rows for {TRAIN_CLASSES} validation "
+          f"samples, header {rows[0]}, {hits} predicted right")
+    if rows[0] != ["Path", "Target", "Prediction", "Probability"] \
+            or len(rows) - 1 != TRAIN_CLASSES:
+        fail("train (a) eval: result.csv rows")
+
+
+def train_online_aug(torch, kernels, K1, dev, card, results, work, log):
+    """Phase 23 (b)."""
+    from vn_celeb_face_recognition_tpu_torch.cli import train as cli_train
+    from vn_celeb_face_recognition_tpu_torch.models import local_weights
+    from vn_celeb_face_recognition_tpu_torch.ops import augment as AUG
+    from vn_celeb_face_recognition_tpu_torch.ops.image import (
+        fixed_image_standardization,
+    )
+    from vn_celeb_face_recognition_tpu_torch.training import trainer as TR
+    from vn_celeb_face_recognition_tpu_torch.utils.tracing import StageTimer
+
+    t0 = time.perf_counter()
+    img_dir = face_dataset(work)
+    data_s = time.perf_counter() - t0
+    cfg = read_json("cfg", "train_cfg_aug_emb_classify.json")
+    for split, manifest in (("train_dataset", "train.json"),
+                            ("val_dataset", "val.json")):
+        cfg[split]["args"] = {"data_dir": img_dir,
+                              "label_file": os.path.join(work, manifest)}
+    cfg["trainer"].update(epochs=AUG_EPOCHS,
+                          save_dir=os.path.join(work, "saved_b"))
+    path = write_config(cfg, work, "train_b.json")
+    weights = local_weights("iresnet100", True)
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    with train_probes(torch, TR) as rec, contextlib.redirect_stdout(log):
+        trainer = cli_train.main(["-c", path])
+    counts = kernels.launch_counts()
+    steps = len(trainer.train_loader) * AUG_EPOCHS
+    check_line_counts(counts, {"similarity_warp": 1}, steps, "train (b)",
+                      results)
+    results["similarity_warp"]["train_launches"] = steps
+    ms = step_ms(rec)
+    losses = [lg["neg_log_llhood"] for _, _, lg in rec["epochs"]]
+    if len(ms) != steps or not all(np.isfinite(losses)):
+        fail(f"train (b): {len(ms)} steps, losses {losses}")
+    median = ms[len(ms) // 2]
+    bs = trainer.train_loader.batch_size
+    n_train = len(trainer.train_loader.dataset)
+    walls = [s for _, s, _ in rec["epochs"]]
+    enc = trainer.encoder
+    snapshot = {k: v.clone() for k, v in enc.state_dict().items()}
+
+    # stage means (each stage waits for the device at its end), one more
+    # unprofiled epoch for the rate, and the busy share of a profiled one
+    timer = StageTimer()
+    with train_probes(torch, TR, timer), contextlib.redirect_stdout(log):
+        trainer._train_epoch(AUG_EPOCHS + 1)
+    stages = ", ".join(f"{name} {st['mean_ms']:.2f}" for name, st in
+                       timer.report().items())
+    with train_probes(torch, TR) as rec, contextlib.redirect_stdout(log):
+        trainer._train_epoch(AUG_EPOCHS + 2)
+    walls += [s for _, s, _ in rec["epochs"]]
+    with contextlib.redirect_stdout(log):
+        busy, top = busy_ms(torch, lambda: trainer._train_epoch(
+            AUG_EPOCHS + 3))
+    rate, epoch_s = train_rate(n_train, walls)
+    mem = steps_in_memory(torch, TR, trainer)
+    mem_timer = StageTimer()
+    steps_in_memory(torch, TR, trainer, mem_timer)
+    mem_stages = ", ".join(f"{name} {st['mean_ms']:.2f}" for name, st in
+                           mem_timer.report().items())
+    changed = [k for k, v in enc.state_dict().items()
+               if not torch.equal(v, snapshot[k])]
+    grads = [n for n, p in enc.named_parameters()
+             if p.grad is not None or p.requires_grad]
+    if changed or grads or enc.training:
+        fail(f"train (b): the frozen encoder changed ({changed[:3]}) or "
+             f"takes gradients ({grads[:3]}) or is in train mode")
+    phase("train-aug", f"cfg/train_cfg_aug_emb_classify.json through "
+          f"cli.train.main on the card: facenet_aug -> iresnet100 (f32, "
+          f"{'weights ' + weights if weights else 'seeded: no local weights'}"
+          f", frozen) -> MLP 512-2048-1001, batch {bs}, {AUG_CLASSES} classes "
+          f"x {AUG_PER_CLASS - AUG_VAL} train + {AUG_VAL} val 112 px PNG "
+          f"faces (written in {data_s:.1f} s); cut: epochs 1000 -> "
+          f"{AUG_EPOCHS}. {rate:.1f} train images/s = {n_train} over the "
+          f"median epoch wall {epoch_s:.3f} s (train + val, loader waits "
+          f"included; epochs {', '.join(f'{s:.3f}' for s in walls)} s, the "
+          f"last one unprofiled after the run); median step {median:.2f} ms "
+          f"(CUDA events, {len(ms)} steps; min {ms[0]:.2f}, max "
+          f"{ms[-1]:.2f}); train loss by epoch "
+          f"{', '.join(f'{v:.4g}' for v in losses)}; StageTimer means ms "
+          f"(each stage synchronised): {stages}; one profiled epoch: device "
+          f"busy {busy:.1f} ms = {busy / 1e3 / epoch_s:.1%} of the median "
+          f"epoch wall (top: {top}); with the batches on the "
+          f"card beforehand (no reader thread): median step "
+          f"{mem[len(mem) // 2]:.2f} ms, stage means ms {mem_stages}; "
+          f"launches {counts} = one K1 "
+          f"a step; encoder weights unchanged, no gradients ({card})")
+
+    # K1 at the training shape, and the card against the CPU
+    batch = next(iter(trainer.train_loader))
+    frames = torch.from_numpy(batch["data"]).to(dev)
+    b, h = frames.shape[:2]
+    gen = torch.Generator(device=dev).manual_seed(5)
+    mats, offs, flip = AUG.facenet_aug_params(gen, b, h, h, h)
+    zeros = torch.zeros(b, dtype=torch.int32, device=dev)
+    idx = torch.arange(b, dtype=torch.int32, device=dev)
+    got = through_kernel(kernels, "similarity_warp",
+                         lambda: AUG.facenet_aug_warp(frames, mats, offs,
+                                                      flip, h))
+    want = AUG.facenet_aug_warp(frames.cpu(), mats.cpu(), offs.cpu(),
+                                flip.cpu(), h)
+    aug_diff = float((got.cpu() - want).abs().max())
+    if not torch.equal(got.cpu(), want):
+        fail(f"facenet_aug on the card vs the CPU: max diff {aug_diff}")
+    warp = through_kernel(kernels, "similarity_warp",
+                          lambda: K1.similarity_warp_frames(
+                              frames, idx, zeros, zeros, h, mats, h))
+    plain = K1.similarity_warp_frames_plain(frames, idx, zeros, zeros, h,
+                                            mats, h)
+    if not torch.equal(warp, plain):
+        fail(f"K1 frames form at the training shape: max diff "
+             f"{float((warp - plain).abs().max()):.3e} from the plain "
+             "version")
+    shares = check_k1_boxes(torch, K1, mats, h, h)
+    ms_k, call_k, plain_ms = timed(
+        torch, "similarity_warp",
+        lambda: K1.similarity_warp_frames(frames, idx, zeros, zeros, h,
+                                          mats, h),
+        lambda: K1.similarity_warp_frames_plain(frames, idx, zeros, zeros,
+                                                h, mats, h))
+    px = warp_footprint_pixels(torch, mats, h, h,
+                               (idx, zeros, zeros, tuple(frames.shape[:3])))
+    nbytes = px * 3 + b * 3 * 4 + mats.numel() * 4 + warp.numel() * 4
+    bound_ms, bound_by = bound(nbytes, warp.numel() * 12, PEAK_F32)
+    results["similarity_warp"]["train"] = dict(
+        faces=b, window=h, ms=ms_k, call_ms=call_k, plain_ms=plain_ms,
+        bound_ms=bound_ms, bound_by=bound_by)
+    # the frozen encoder on the card against the CPU, same augmented faces
+    x = fixed_image_standardization(want[:AUG_CPU_FACES])
+    enc_cpu = copy.deepcopy(enc).cpu()
+    with torch.no_grad():
+        e_gpu = enc(x.to(dev).permute(0, 3, 1, 2)).cpu()
+        e_cpu = enc_cpu(x.permute(0, 3, 1, 2))
+    cos = float(torch.nn.functional.cosine_similarity(e_gpu, e_cpu,
+                                                      dim=-1).min())
+    phase("train-aug-K1", f"similarity_warp frames form at the training "
+          f"shape, {b}x{h}x{h} u8 images, each its own window, one "
+          f"rotation + crop similarity each -> {h} px f32: equal to the "
+          f"plain version (torch.equal); tile boxes equal "
+          f"ops.warp.footprint_boxes (staged tiles {shares[torch.uint8]:.2%}"
+          f" u8); kernel {ms_k:.4f} ms, call {call_k:.4f} ms, plain "
+          f"{plain_ms:.3f} ms, bound {bound_ms:.4f} ms ({bound_by}: {px} "
+          f"distinct pixels read, {px / (b * h * h):.1%} of the batch) "
+          f"({TIMING}); facenet_aug_warp on the card vs the CPU for the same "
+          f"drawn parameters: max diff {aug_diff} (torch.equal); the frozen "
+          f"iresnet100 on {AUG_CPU_FACES} augmented faces, card vs CPU f32: "
+          f"min cosine {cos:.6f} (>= 0.999) ({card})")
+    if cos < 0.999:
+        fail("train (b) encoder card vs CPU outside tolerance")
+
+    # the MLP step of (b) on the card against the CPU: one epoch, dropout
+    # 0, the same seeded MLP, each batch augmented and encoded once on the
+    # card and the same embeddings given to both
+    cfg["model"]["args"]["dropout_prob"] = 0.0
+    cfg["trainer"].update(epochs=1,
+                          save_dir=os.path.join(work, "saved_b_gate"))
+    with contextlib.redirect_stdout(log):
+        tg = cli_train.build_trainer_from_config(copy.deepcopy(cfg),
+                                                 device=dev)[0]
+        tc = cli_train.build_trainer_from_config(copy.deepcopy(cfg),
+                                                 device="cpu")[0]
+    gl, cl, norms = [], [], []
+    for batch in tg._batches(tg.train_loader):
+        emb = tg._encode(tg._prepare_input(batch["data"], train=True))
+        norms.append(float(emb.norm(dim=1).median()))
+        target, weight = batch["target"], batch["weight"]
+        gl.append(tg._update(emb, target, weight)[0])
+        cl.append(tc._update(emb.cpu(), target.cpu(), weight.cpu())[0])
+    gl, cl = np.asarray(gl), np.asarray(cl)
+    loss_rel = float(np.max(np.abs(gl - cl) / np.abs(cl)))
+    gw, cw = tg.model.state_dict(), tc.model.state_dict()
+    w_err = max(float((gw[k].cpu() - cw[k]).abs().max()) for k in cw)
+    phase("train-aug-card-vs-cpu", f"the MLP step of (b), one epoch, "
+          f"dropout 0, from the same seeded weights on the same augmented "
+          f"and encoded batches (median embedding norm "
+          f"{np.median(norms):.4g}): {len(gl)} per-batch losses "
+          f"{', '.join(f'{v:.4g}' for v in gl)}, max rel diff "
+          f"{loss_rel:.2e} (rtol 1e-4); final MLP weights max abs diff "
+          f"{w_err:.2e} (atol 1e-3) ({card})")
+    if not np.all(np.isfinite(gl)) or loss_rel > 1e-4 or w_err > 1e-3:
+        fail("train (b) MLP step card vs CPU outside tolerance")
+
+
 def main():
     if not os.path.isdir(os.path.join(HERE, PKG)):
         fail(f"no {PKG} package beside {os.path.basename(__file__)}; run "
@@ -2520,6 +3063,10 @@ def main():
 
     # ---- 22. the CLIs ----------------------------------------------------
     phase_cli(torch, kernels, dev, card, results)
+    torch.cuda.empty_cache()
+
+    # ---- 23. the trainers ------------------------------------------------
+    phase_train(torch, kernels, K1, dev, card, results)
 
     kernel_rows = []
     for kname, (src, replaces) in KERNEL_SOURCES.items():

@@ -2,18 +2,23 @@
 
 Counterpart of ``vn_celeb_face_recognition_tpu/data/transforms.py``. A
 transform is ``fn(images, rng=None) -> float32 batch`` on the caller's
-device; ``rng`` is ignored by the deterministic transforms.
+device; ``rng`` is a ``torch.Generator`` on that device, ignored by the
+deterministic transforms.
 
 Registered names (the JAX package's):
   default      -- (x - 127.5) / 128                (fix_std)
+  facenet_aug  -- rotate +-10, random-crop pad 2, hflip, fix_std
+                  (``ops.augment.facenet_aug``: one K1 warp a batch; a
+                  uint8 batch is read as it is)
+  rank1_aug    -- training augmentation, not ported yet
   emotion_inf  -- area-resize 224, /255, ImageNet normalise
   prewhiten    -- per-image mean/std whitening
-  facenet_aug, rank1_aug -- training augmentations, not ported yet
   none         -- no transform
 """
 
 import torch
 
+from ..ops.augment import facenet_aug
 from ..ops.image import (
     area_resize,
     fixed_image_standardization,
@@ -26,18 +31,17 @@ def transform_default(images, rng=None):
     return fixed_image_standardization(images.to(torch.float32))
 
 
-def _training_only(name):
-    def transform(images, rng=None):
-        raise NotImplementedError(
-            f"the {name!r} transform is a training augmentation; it is "
-            "ported with the online augmentation (ROADMAP.md A.6)")
-
-    transform.__name__ = f"transform_{name}"
-    return transform
+def transform_facenet_aug(images, rng):
+    if rng is None:
+        raise ValueError("facenet_aug draws from a torch.Generator; got None")
+    return facenet_aug(rng, images)
 
 
-transform_facenet_aug = _training_only("facenet_aug")
-transform_rank1_aug = _training_only("rank1_aug")
+def transform_rank1_aug(images, rng=None):
+    raise NotImplementedError(
+        "the 'rank1_aug' transform (flip + one of eight photometric "
+        "augmenters + prewhiten) is not ported yet; it comes with the "
+        "image-classify trainer, the next slice (ROADMAP.md A.6)")
 
 
 def transform_emotion_inf(images, rng=None):

@@ -153,8 +153,8 @@ def _build_resnet101(**kwargs):
         "resnet101 (the SE-IR encoder) is not ported yet (ROADMAP.md, A.10)")
 
 
-def _build_mlp(input_dim, num_classes, **kwargs):
-    return _seeded(MLPModel(input_dim, num_classes))
+def _build_mlp(input_dim, num_classes, dropout_prob=0.5):
+    return _seeded(MLPModel(input_dim, num_classes, dropout_prob))
 
 
 _BUILDERS = {

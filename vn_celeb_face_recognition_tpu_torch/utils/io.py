@@ -1,13 +1,14 @@
-"""Host-side file helpers of the CLIs: JSON, pickles, tracker rows and the
-``label,name`` tables.
+"""Host-side file helpers of the CLIs and the trainers: JSON, pickles,
+folders, tracker rows, ``result.csv`` and the ``label,name`` tables.
 
 Counterpart of ``vn_celeb_face_recognition_tpu/utils/io.py`` (the parts the
-CLIs use), with the same signatures and file formats. The name tables are
-read with the ``csv`` module, not pandas.
+CLIs and trainers use), with the same signatures and file formats. Tables
+are read and written with the ``csv`` module, not pandas.
 """
 
 import csv
 import json
+import os
 import pickle
 
 
@@ -28,6 +29,30 @@ def load_pickle(path):
     unpickling runs code."""
     with open(path, "rb") as fp:
         return pickle.load(fp)
+
+
+def create_folder(path):
+    os.makedirs(str(path), exist_ok=True)
+
+
+def save_csv(data, filename, columns):
+    """Write ``data`` (an iterable of rows) under a ``columns`` header, as
+    ``pandas.DataFrame(data, columns=columns).to_csv(filename,
+    index=False)`` does for rows of strings and numbers."""
+    with open(filename, "w", newline="") as fp:
+        writer = csv.writer(fp, lineterminator="\n")
+        writer.writerow(columns)
+        for row in data:
+            if len(row) != len(columns):
+                raise ValueError(f"row {row!r} has {len(row)} fields, "
+                                 f"want {len(columns)}")
+            writer.writerow([_csv_field(v) for v in row])
+
+
+def _csv_field(value):
+    if hasattr(value, "item"):  # numpy scalars
+        value = value.item()
+    return repr(value) if isinstance(value, float) else value
 
 
 def append_log_to_file(file_path, list_items):
