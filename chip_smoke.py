@@ -123,6 +123,20 @@ Phases, one line of output each (a failed phase exits non-zero):
       augmented batch card vs CPU (torch.equal before standardisation), the
       encoder's embeddings card vs CPU (cosine >= 0.999), the encoder's
       weights unchanged and without gradients.
+  24. the image-classify trainer and the shared online-aug step:
+      train-img, cfg/train_cfg_img_classify.json through cli.train.main
+      (InceptionResnetV1 classify, 1,000 classes, seeded; rank1_aug; batch
+      64; f32; 64 classes x 10 + 1 seeded 181 px PNGs; epochs cut to 2):
+      samples/s over the median epoch wall, median step, StageTimer means
+      (augment, forward_backward, optimizer), busy share, peak memory,
+      checkpoint size, no kernel launched; train-img-aug, rank1 card vs
+      CPU on the same parameters (1e-4 after prewhiten) and the draw's
+      shares; train-img-card-vs-cpu, two steps of 8 at dropout 0 with SGD,
+      each from the same state (losses rtol 1e-4, parameters and BN
+      statistics 1e-3); train-img-eval, cli.eval's result.csv; aug-step,
+      training.aug_step at bench.py's train shape (iresnet100 bf16, MLP
+      1001, 256 faces of 112 px): median step, images/s, one K1 launch a
+      step, K1 at 256x112 against its plain version and bound.
 
 Kernel phases check bf16 at the lines' shapes and f32 on a slice of
 them; exact kernels (K3, K4) are held with torch.equal. Every kernel is
@@ -313,13 +327,20 @@ def device_ms(torch, fn, names=(), runs=20):
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(runs):
-            fn()
-        torch.cuda.synchronize()
-    events = [e for e in prof.key_averages()
-              if e.device_type == DeviceType.CUDA
-              and not getattr(e, "is_user_annotation", False)]
+    # a profiling session that records no device event at all (seen once
+    # on an H100) is taken again, once
+    for attempt in range(2):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(runs):
+                fn()
+            torch.cuda.synchronize()
+        events = [e for e in prof.key_averages()
+                  if e.device_type == DeviceType.CUDA
+                  and not getattr(e, "is_user_annotation", False)]
+        if events:
+            break
+        print(f"note: torch.profiler recorded no device event for "
+              f"{names or 'fn'}; profiling again", flush=True)
     total = sum(e.self_device_time_total for e in events
                 if not names or is_grid(e.key, names))
     if total <= 0:
@@ -2162,6 +2183,14 @@ TRAIN_CLASSES, TRAIN_PER_CLASS, TRAIN_EPOCHS = 1000, 5, 3
 AUG_CLASSES, AUG_PER_CLASS, AUG_VAL, AUG_EPOCHS = 16, 40, 4, 2
 # card against CPU: faces through the frozen iresnet100 on the CPU
 AUG_CPU_FACES = 8
+# phase 24 (the image-classify trainer): cfg/train_cfg_img_classify.json on
+# IMG_CLASSES x (IMG_PER_CLASS + 1) PNGs of IMG_SIZE px (the size of the
+# repo's data/*.png faces), epochs cut to IMG_EPOCHS; its card-vs-CPU gate
+# takes two steps at IMG_GATE_BATCH; then training.aug_step at bench.py's
+# train shape (iresnet100 bf16, MLP 1001, 256 faces of 112 px)
+IMG_CLASSES, IMG_PER_CLASS, IMG_SIZE, IMG_EPOCHS = 64, 10, 181, 2
+IMG_GATE_BATCH, IMG_GATE_STEPS = 8, 2
+STEP_BATCH, STEP_CLASSES, STEP_RUNS = 256, 1001, 20
 
 
 @contextlib.contextmanager
@@ -2176,12 +2205,13 @@ def patched(cls, name, wrap):
 
 
 @contextlib.contextmanager
-def train_probes(torch, trainer_mod, timer=None):
+def train_probes(torch, trainer_mod, timer=None, stages=None):
     """Inside the block, every trainer's steps are timed with CUDA events
     and its per-step losses and epoch logs and host wall times recorded
     (the entry points run unchanged). With a ``StageTimer``, the step's
-    stages (augment, encode, mlp_step) are timed on it too, each waiting
-    for the device at its end."""
+    stages are timed on it too, each waiting for the device at its end:
+    ``stages`` names them as (class, method, stage) (default augment,
+    encode and mlp_step)."""
     rec = {"steps": [], "losses": [], "epochs": []}
 
     def step(orig):
@@ -2224,7 +2254,7 @@ def train_probes(torch, trainer_mod, timer=None):
         stack.enter_context(patched(trainer_mod.ClassificationTrainer,
                                     "_train_epoch", epoch))
         if timer is not None:
-            for cls, method, name in (
+            for cls, method, name in stages or (
                     (trainer_mod.BaseTrainer, "_prepare_input", "augment"),
                     (trainer_mod.AugClassificationTrainer, "_encode",
                      "encode"),
@@ -2259,15 +2289,16 @@ def busy_ms(torch, run):
         f"{e.key[:40]} {e.self_device_time_total / 1e3:.2f}" for e in top)
 
 
-def steps_in_memory(torch, trainer_mod, trainer, timer=None):
+def steps_in_memory(torch, trainer_mod, trainer, timer=None, stages=None):
     """One pass of ``trainer``'s train batches, all moved to the card
     first, so no reader thread runs beside the steps: the sorted CUDA-event
-    ms of each ``_train_step`` (each stage timed by ``timer`` if given)."""
+    ms of each ``_train_step`` (each stage timed by ``timer`` if given, as
+    ``train_probes`` times them)."""
     batches = [{k: torch.from_numpy(v).to(trainer.device)
                 if isinstance(v, np.ndarray) else v for k, v in b.items()}
                for b in trainer.train_loader]
     torch.cuda.synchronize()
-    with train_probes(torch, trainer_mod, timer) as rec:
+    with train_probes(torch, trainer_mod, timer, stages) as rec:
         for batch in batches:
             trainer._train_step(batch)
             torch.cuda.synchronize()
@@ -2680,6 +2711,379 @@ def train_online_aug(torch, kernels, K1, dev, card, results, work, log):
         fail("train (b) MLP step card vs CPU outside tolerance")
 
 
+def img_dataset(work):
+    """IMG_CLASSES x (IMG_PER_CLASS + 1) PNGs of IMG_SIZE px: class c is
+    face c mod 20 of the repo's data/*.png under a seeded colour tint,
+    each image a seeded crop of it enlarged by 12 px, a gain and noise;
+    the last of each class is for validation."""
+    from vn_celeb_face_recognition_tpu_torch.utils.frames import (
+        face_files,
+        read_png,
+        resize_bilinear,
+        write_png,
+    )
+
+    img_dir = os.path.join(work, "img")
+    os.makedirs(img_dir)
+    gen = np.random.default_rng(25)
+    big = IMG_SIZE + 12
+    bases = [resize_bilinear(read_png(f), (big, big)).astype(np.float32)
+             for f in face_files()]
+    train, val = {}, {}
+    for c in range(IMG_CLASSES):
+        base = bases[c % len(bases)] * gen.uniform(0.75, 1.25, 3)
+        names = []
+        for j in range(IMG_PER_CLASS + 1):
+            y, x = gen.integers(0, 13, 2)
+            crop = base[y:y + IMG_SIZE, x:x + IMG_SIZE]
+            img = crop * gen.uniform(0.8, 1.2) \
+                + gen.normal(0, 6, (IMG_SIZE, IMG_SIZE, 3))
+            write_png(os.path.join(img_dir, f"{c}_{j}.png"),
+                      np.clip(np.round(img), 0, 255).astype(np.uint8))
+            names.append(f"{c}_{j}.png")
+        train[str(c)], val[str(c)] = names[:-1], names[-1:]
+    for name, manifest in (("img_train.json", train),
+                           ("img_val.json", val)):
+        with open(os.path.join(work, name), "w") as fp:
+            json.dump(manifest, fp)
+    return img_dir
+
+
+def phase_train_img(torch, kernels, K1, dev, card, results):
+    """24. The image-classify trainer and the shared online-aug step.
+    (a) ``train-img``: cfg/train_cfg_img_classify.json as it stands
+    through cli.train.main (InceptionResnetV1 classify, 1,000 classes,
+    seeded after the missing-weights warning; rank1_aug; batch 64, val 32;
+    Adam 1e-3 wd 1e-4; plateau schedule; f32, TF32 off) on seeded 181 px
+    PNGs; cut: epochs 100 -> 2, save_period kept at 1. The rate (train
+    samples over the median epoch wall), the median step (CUDA events),
+    StageTimer means (augment, forward_backward, optimizer), the busy
+    share of a profiled epoch, the peak of torch.cuda.max_memory_allocated
+    and the checkpoint's size; no kernel launched. (b) ``train-img-aug``:
+    rank1 on the card against the CPU on the same drawn parameters, every
+    augmenter forced at least once, within 1e-4 after prewhiten; the
+    draw's shares. (c) ``train-img-card-vs-cpu``: two steps of batches of
+    8 at dropout 0, each from the same state on both (the card's after the
+    first) with the same rank1 parameters, with SGD (momentum 0.9, the
+    config's rate and decay): Adam's first step is ~lr sign(g), which
+    turns the devices' rounding on gradients near 0 into +-lr moves, while
+    SGD's step is linear in the gradient. Losses within rtol 1e-4,
+    parameters and BN running statistics within 1e-3. (d)
+    ``train-img-eval``: cli.eval.main on the checkpoint writes result.csv,
+    one row per validation image. (e) ``aug-step``:
+    training.aug_step.make_aug_train_step at bench.py's train shape: the
+    median step, images/s, exactly one K1 launch a step; K1 at that shape
+    equal to its plain version and timed against it and its bound."""
+    import logging
+    import shutil
+    import tempfile
+
+    os.makedirs(os.path.join(HERE, "build"), exist_ok=True)
+    work = tempfile.mkdtemp(prefix="train_img_smoke_",
+                            dir=os.path.join(HERE, "build"))
+    log = open(os.path.join(work, "trainer.log"), "w")
+    try:
+        train_img_classifier(torch, kernels, dev, card, work, log)
+        aug_step_line(torch, kernels, K1, dev, card, results)
+    finally:
+        root = logging.getLogger()
+        for handler in list(root.handlers):
+            root.removeHandler(handler)
+            handler.close()
+        log.close()
+        shutil.rmtree(work, ignore_errors=True)
+
+
+def to_cpu(tree):
+    """A tree of dicts and lists (rank1 parameters, an optimizer's
+    state_dict) with copies of its tensors on the CPU."""
+    if isinstance(tree, dict):
+        return {k: to_cpu(v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [to_cpu(v) for v in tree]
+    return tree.detach().cpu().clone() if hasattr(tree, "detach") else tree
+
+
+def train_img_classifier(torch, kernels, dev, card, work, log):
+    """Phase 24 (a)-(d)."""
+    import csv
+
+    from vn_celeb_face_recognition_tpu_torch.cli import eval as cli_eval
+    from vn_celeb_face_recognition_tpu_torch.cli import train as cli_train
+    from vn_celeb_face_recognition_tpu_torch.models import local_weights
+    from vn_celeb_face_recognition_tpu_torch.ops import augment as AUG
+    from vn_celeb_face_recognition_tpu_torch.training import trainer as TR
+    from vn_celeb_face_recognition_tpu_torch.utils.tracing import StageTimer
+
+    t0 = time.perf_counter()
+    img_dir = img_dataset(work)
+    data_s = time.perf_counter() - t0
+    cfg = read_json("cfg", "train_cfg_img_classify.json")
+    for split, manifest in (("train_dataset", "img_train.json"),
+                            ("val_dataset", "img_val.json")):
+        cfg[split]["args"] = {"data_dir": img_dir,
+                              "label_file": os.path.join(work, manifest)}
+    cfg["trainer"].update(epochs=IMG_EPOCHS,
+                          save_dir=os.path.join(work, "saved_img"))
+    path = write_config(cfg, work, "train_img.json")
+    weights = local_weights("InceptionResnetV1", "vggface2")
+    source = (f"weights {weights}" if weights else
+              "seeded: no local weights, the warning printed")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    with train_probes(torch, TR) as rec, contextlib.redirect_stdout(log):
+        trainer = cli_train.main(["-c", path])
+    counts = kernels.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    if any(counts.values()):
+        fail(f"train-img launched kernels {counts}; its path has none")
+    model = trainer.model
+    if trainer.device.type != "cuda" or model.logits is None \
+            or model.logits.out_features != 1000:
+        fail(f"train-img: {type(model).__name__} on {trainer.device}")
+    steps = len(trainer.train_loader) * IMG_EPOCHS
+    ms = step_ms(rec)
+    losses = [lg["neg_log_llhood"] for _, _, lg in rec["epochs"]]
+    if len(ms) != steps or not all(np.isfinite(losses)):
+        fail(f"train-img: {len(ms)} steps, losses {losses}")
+    ckpt = os.path.join(trainer.save_dir, f"checkpoint-epoch{IMG_EPOCHS}.ckpt")
+    ckpt_mb = os.path.getsize(ckpt) / 2**20
+    walls = [s for _, s, _ in rec["epochs"]]
+    bs = trainer.train_loader.batch_size
+    n_train = len(trainer.train_loader.dataset)
+
+    # stage means (each stage waits for the device at its end), one more
+    # unprofiled epoch for the rate, and the busy share of a profiled one
+    timer = StageTimer()
+    stages = ((TR.BaseTrainer, "_prepare_input", "augment"),
+              (TR.BaseTrainer, "_forward_backward", "forward_backward"),
+              (TR.BaseTrainer, "_optimizer_step", "optimizer"))
+    with train_probes(torch, TR, timer, stages), \
+            contextlib.redirect_stdout(log):
+        trainer._train_epoch(IMG_EPOCHS + 1)
+    means = ", ".join(f"{name} {st['mean_ms']:.2f}" for name, st in
+                      timer.report().items())
+    with train_probes(torch, TR) as rec2, contextlib.redirect_stdout(log):
+        trainer._train_epoch(IMG_EPOCHS + 2)
+    walls += [s for _, s, _ in rec2["epochs"]]
+    with contextlib.redirect_stdout(log):
+        busy, top = busy_ms(torch, lambda: trainer._train_epoch(
+            IMG_EPOCHS + 3))
+    rate, epoch_s = train_rate(n_train, walls)
+    mem = steps_in_memory(torch, TR, trainer)
+    mem_timer = StageTimer()
+    steps_in_memory(torch, TR, trainer, mem_timer, stages)
+    mem_means = ", ".join(f"{name} {st['mean_ms']:.2f}" for name, st in
+                          mem_timer.report().items())
+    phase("train-img", f"cfg/train_cfg_img_classify.json through "
+          f"cli.train.main on the card: InceptionResnetV1 classify 1,000 "
+          f"classes ({source}), "
+          f"rank1_aug, f32 (TF32 off), Adam 1e-3, batch {bs}, "
+          f"{IMG_CLASSES} classes x {IMG_PER_CLASS} train + 1 val PNGs of "
+          f"{IMG_SIZE} px (written in {data_s:.1f} s); cut: epochs 100 -> "
+          f"{IMG_EPOCHS}, save_period 1. {rate:.1f} train samples/s = "
+          f"{n_train} over the median epoch wall {epoch_s:.3f} s (train + "
+          f"val, loader waits included; epochs "
+          f"{', '.join(f'{s:.3f}' for s in walls)} s, the last one "
+          f"unprofiled after the run); median step {ms[len(ms) // 2]:.2f} "
+          f"ms (CUDA events, {len(ms)} steps; min {ms[0]:.2f}, max "
+          f"{ms[-1]:.2f}); train loss by epoch "
+          f"{', '.join(f'{v:.4f}' for v in losses)}; StageTimer means ms "
+          f"(each stage synchronised): {means}; one profiled epoch: device "
+          f"busy {busy:.1f} ms = {busy / 1e3 / epoch_s:.1%} of the median "
+          f"epoch wall (top: {top}); with the batches on the card "
+          f"beforehand (no reader thread): median step "
+          f"{mem[len(mem) // 2]:.2f} ms, stage means ms {mem_means}; "
+          f"max_memory_allocated "
+          f"{peak / 2**30:.2f} GiB; checkpoint {ckpt_mb:.1f} MiB; kernels "
+          f"launched: none ({card})")
+
+    # (b) rank1 on the card against the CPU, every augmenter forced once
+    batch = next(iter(trainer.train_loader))
+    frames = torch.from_numpy(batch["data"]).to(dev)
+    b = frames.shape[0]
+    gen = torch.Generator(device=dev).manual_seed(6)
+    params = AUG.rank1_vn_celeb_aug_params(gen, b)
+    n_ops = len(AUG.RANK1_OPS)
+    params["op"][:n_ops] = torch.arange(n_ops, device=dev)
+    params["apply"][:n_ops] = True
+    got = AUG.rank1_vn_celeb_aug_apply(frames, params)
+    want = AUG.rank1_vn_celeb_aug_apply(frames.cpu(), to_cpu(params))
+    aug_err = float((got.cpu() - want).abs().max())
+    aug_ms = median_ms(torch, lambda: AUG.rank1_vn_celeb_aug(gen, frames))
+    draws = AUG.rank1_vn_celeb_aug_params(gen, 4096)
+    op_shares = torch.bincount(draws["op"], minlength=n_ops).float() / 4096
+    shares = ", ".join(f"{name} {float(v):.3f}" for (name, _, _), v in
+                       zip(AUG.RANK1_OPS, op_shares))
+    phase("train-img-aug", f"rank1_vn_celeb_aug_apply on {b}x{IMG_SIZE}x"
+          f"{IMG_SIZE} u8 on the card vs the CPU, the same drawn parameters "
+          f"with each of the {n_ops} augmenters forced on one image: max abs "
+          f"diff {aug_err:.2e} after prewhiten (<= 1e-4); draw + apply on "
+          f"the card {aug_ms:.3f} ms (CUDA events, median of 20); 4,096 "
+          f"draws: flip {float(draws['flip'].float().mean()):.3f} (0.5), "
+          f"apply {float(draws['apply'].float().mean()):.3f} (0.8), ops "
+          f"{shares} "
+          f"(0.125 each) ({card})")
+    if not aug_err <= 1e-4 or not bool(torch.isfinite(got).all()):
+        fail("rank1_aug card vs CPU outside tolerance")
+
+    # (c) the card against the CPU: two steps, each from the same state
+    gate = copy.deepcopy(cfg)
+    gate["model"]["args"]["dropout_prob"] = 0.0
+    gate["optimizer"] = {"name": "SGD", "args": {
+        "lr": cfg["optimizer"]["args"]["lr"], "momentum": 0.9,
+        "weight_decay": cfg["optimizer"]["args"]["weight_decay"]}}
+    gate["train_data_loader"]["args"]["batch_size"] = IMG_GATE_BATCH
+    gate["trainer"].update(epochs=1, save_dir=os.path.join(work, "gate"))
+    with contextlib.redirect_stdout(log):
+        tg = cli_train.build_trainer_from_config(copy.deepcopy(gate),
+                                                 device=dev)[0]
+        tc = cli_train.build_trainer_from_config(copy.deepcopy(gate),
+                                                 device="cpu")[0]
+    gen = torch.Generator(device=dev).manual_seed(7)
+    rows, lines = [], []
+    for i, batch in enumerate(tg.train_loader):
+        if i == IMG_GATE_STEPS:
+            break
+        if i:  # the CPU continues from the card's state
+            tc.model.load_state_dict(tg.model.state_dict())
+            tc.optimizer.load_state_dict(to_cpu(tg.optimizer.state_dict()))
+        data = torch.from_numpy(batch["data"])
+        target = torch.from_numpy(batch["target"])
+        weight = torch.from_numpy(batch["weight"])
+        p = AUG.rank1_vn_celeb_aug_params(gen, data.shape[0])
+        xg = AUG.rank1_vn_celeb_aug_apply(data.to(dev), p)
+        xc = AUG.rank1_vn_celeb_aug_apply(data, to_cpu(p))
+        lg = tg._update(xg.permute(0, 3, 1, 2), target.to(dev),
+                        weight.to(dev))[0]
+        lc = tc._update(xc.permute(0, 3, 1, 2), target, weight)[0]
+        gw, cw = tg.model.state_dict(), tc.model.state_dict()
+        diffs = {k: float((gw[k].cpu().float() - cw[k].float()).abs().max())
+                 for k in cw if not k.endswith("num_batches_tracked")}
+        stats = max(v for k, v in diffs.items() if ".running_" in k)
+        par = max(v for k, v in diffs.items() if ".running_" not in k)
+        worst = max(diffs, key=diffs.get)
+        rel = abs(lg - lc) / abs(lc)
+        rows.append((rel, par, stats))
+        lines.append(f"step {i + 1}: losses {lg:.6f} / {lc:.6f} (rel "
+                     f"{rel:.2e}), parameters max abs diff {par:.2e}, BN "
+                     f"running statistics {stats:.2e} (worst {worst})")
+    phase("train-img-card-vs-cpu", f"InceptionResnetV1 classify, batches of "
+          f"{IMG_GATE_BATCH} x {IMG_SIZE} px, dropout 0, rank1 on the same "
+          f"drawn parameters, SGD lr {gate['optimizer']['args']['lr']} "
+          f"momentum 0.9 wd {gate['optimizer']['args']['weight_decay']} "
+          f"(linear in the gradient), each step from the same state: "
+          f"{'; '.join(lines)} (gates: rtol 1e-4, atol 1e-3, atol 1e-3) "
+          f"({card})")
+    if len(rows) != IMG_GATE_STEPS or any(
+            not (rel <= 1e-4 and par <= 1e-3 and st <= 1e-3)
+            for rel, par, st in rows):
+        fail("train-img card vs CPU outside tolerance")
+
+    # (d) cli.eval on the checkpoint the cut run wrote
+    ev_cfg = copy.deepcopy(cfg)
+    ev_cfg["trainer"].update(resume_path=ckpt, save_result=True,
+                             save_dir=os.path.join(work, "saved_img_eval"))
+    with contextlib.redirect_stdout(log):
+        ev = cli_eval.main(["-c", write_config(ev_cfg, work,
+                                                "eval_img.json")])
+    with open(os.path.join(ev.save_dir, "result.csv"), newline="") as fp:
+        result = list(csv.reader(fp))
+    hits = sum(r[1] == r[2] for r in result[1:])
+    phase("train-img-eval", f"cli.eval.main on {os.path.basename(ckpt)}: "
+          f"result.csv {len(result) - 1} rows for {IMG_CLASSES} validation "
+          f"images, header {result[0]}, {hits} predicted right")
+    if result[0] != ["Path", "Target", "Prediction", "Probability"] \
+            or len(result) - 1 != IMG_CLASSES:
+        fail("train-img eval: result.csv rows")
+
+
+def aug_step_line(torch, kernels, K1, dev, card, results):
+    """Phase 24 (e)."""
+    from vn_celeb_face_recognition_tpu_torch.ops import augment as AUG
+    from vn_celeb_face_recognition_tpu_torch.training.aug_step import (
+        make_aug_train_step,
+    )
+    from vn_celeb_face_recognition_tpu_torch.utils.frames import (
+        face_files,
+        read_png,
+        resize_bilinear,
+    )
+
+    step, mlp, opt = make_aug_train_step("iresnet100", STEP_CLASSES, 112,
+                                         seed=0, device=dev)
+    faces = [resize_bilinear(read_png(f), (112, 112)) for f in face_files()]
+    imgs = torch.from_numpy(np.stack([faces[i % len(faces)]
+                                      for i in range(STEP_BATCH)])).to(dev)
+    target = (torch.arange(STEP_BATCH, device=dev) % STEP_CLASSES).to(
+        torch.int32)
+    weight = torch.ones(STEP_BATCH, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(8)
+    for _ in range(3):  # warm-up: cuDNN plans, the allocator
+        step(mlp, opt, imgs, target, weight, gen)
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    events, losses = [], []
+    for _ in range(STEP_RUNS):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        losses.append(step(mlp, opt, imgs, target, weight, gen))
+        end.record()
+        events.append((start, end))
+    torch.cuda.synchronize()
+    counts = kernels.launch_counts()
+    check_line_counts(counts, {"similarity_warp": 1}, STEP_RUNS, "aug-step",
+                      results)
+    results["similarity_warp"]["aug_step_launches"] = STEP_RUNS
+    times = sorted(s.elapsed_time(e) for s, e in events)
+    losses = [float(v) for v in losses]
+    if not all(np.isfinite(losses)):
+        fail(f"aug-step losses {losses}")
+    median = times[len(times) // 2]
+
+    # K1 at the step's shape: one frames-form warp of the 256 faces
+    b, h = imgs.shape[:2]
+    mats, offs, flip = AUG.facenet_aug_params(gen, b, h, h, h)
+    zeros = torch.zeros(b, dtype=torch.int32, device=dev)
+    idx = torch.arange(b, dtype=torch.int32, device=dev)
+    warp = through_kernel(kernels, "similarity_warp",
+                          lambda: K1.similarity_warp_frames(
+                              imgs, idx, zeros, zeros, h, mats, h))
+    plain = K1.similarity_warp_frames_plain(imgs, idx, zeros, zeros, h,
+                                            mats, h)
+    if not torch.equal(warp, plain):
+        fail(f"K1 frames form at the aug-step shape: max diff "
+             f"{float((warp - plain).abs().max()):.3e} from the plain "
+             "version")
+    ms_k, call_k, plain_ms = timed(
+        torch, "similarity_warp",
+        lambda: K1.similarity_warp_frames(imgs, idx, zeros, zeros, h, mats,
+                                          h),
+        lambda: K1.similarity_warp_frames_plain(imgs, idx, zeros, zeros, h,
+                                                mats, h))
+    px = warp_footprint_pixels(torch, mats, h, h,
+                               (idx, zeros, zeros, tuple(imgs.shape[:3])))
+    nbytes = px * 3 + b * 3 * 4 + mats.numel() * 4 + warp.numel() * 4
+    bound_ms, bound_by = bound(nbytes, warp.numel() * 12, PEAK_F32)
+    results["similarity_warp"]["aug_step"] = dict(
+        faces=b, window=h, ms=ms_k, call_ms=call_k, plain_ms=plain_ms,
+        bound_ms=bound_ms, bound_by=bound_by)
+    phase("aug-step", f"training.aug_step.make_aug_train_step at bench.py's "
+          f"train shape: facenet_aug (K1 frames form) -> iresnet100 bf16 "
+          f"(seeded, frozen, no_grad) -> MLP 512-2048-{STEP_CLASSES}, NLL, "
+          f"Adam 1e-4; {b} faces of {h} px from data/*.png: median step "
+          f"{median:.2f} ms (CUDA events, {STEP_RUNS} steps after 3 warm-up; "
+          f"min {times[0]:.2f}, max {times[-1]:.2f}) = "
+          f"{b / median * 1e3:.1f} images/s; losses {losses[0]:.4g} -> "
+          f"{losses[-1]:.4g}; launches {counts} = one K1 a step; K1 at "
+          f"{b}x{h}x{h} u8 equal to its plain version (torch.equal), kernel "
+          f"{ms_k:.4f} ms, call {call_k:.4f} ms, plain {plain_ms:.3f} ms, "
+          f"bound {bound_ms:.4f} ms ({bound_by}: {px} distinct pixels "
+          f"read) ({TIMING}; {card})")
+
+
 def main():
     if not os.path.isdir(os.path.join(HERE, PKG)):
         fail(f"no {PKG} package beside {os.path.basename(__file__)}; run "
@@ -3067,6 +3471,10 @@ def main():
 
     # ---- 23. the trainers ------------------------------------------------
     phase_train(torch, kernels, K1, dev, card, results)
+    torch.cuda.empty_cache()
+
+    # ---- 24. the image-classify trainer and the online-aug step ----------
+    phase_train_img(torch, kernels, K1, dev, card, results)
 
     kernel_rows = []
     for kname, (src, replaces) in KERNEL_SOURCES.items():

@@ -93,15 +93,15 @@ def test_transform_registry():
     assert TT.get_transform("none") is None and TT.get_transform(None) is None
     with pytest.raises(KeyError):
         TT.get_transform("nope")
-    with pytest.raises(NotImplementedError, match="A.6"):
-        TT.transforms_dict["rank1_aug"](torch.zeros((1, 8, 8, 3)))
-    # facenet_aug is a training augmentation: it draws from a generator
-    with pytest.raises(ValueError, match="Generator"):
-        TT.transforms_dict["facenet_aug"](torch.zeros((1, 8, 8, 3)), None)
-    out = TT.transforms_dict["facenet_aug"](
-        torch.zeros((1, 8, 8, 3), dtype=torch.uint8),
-        torch.Generator().manual_seed(0))
-    assert out.shape == (1, 8, 8, 3) and out.dtype == torch.float32
+    # facenet_aug and rank1_aug are training augmentations: they draw from
+    # a generator
+    for name in ("facenet_aug", "rank1_aug"):
+        with pytest.raises(ValueError, match="Generator"):
+            TT.transforms_dict[name](torch.zeros((1, 8, 8, 3)), None)
+        out = TT.transforms_dict[name](
+            torch.zeros((1, 8, 8, 3), dtype=torch.uint8),
+            torch.Generator().manual_seed(0))
+        assert out.shape == (1, 8, 8, 3) and out.dtype == torch.float32
 
 
 def test_stage_timer_format_matches_jax(tmp_path):

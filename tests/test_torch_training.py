@@ -492,8 +492,12 @@ def test_transform_facenet_aug_is_facenet_aug():
                                           torch.Generator().manual_seed(5))
     want = PA.facenet_aug(torch.Generator().manual_seed(5), imgs)
     assert torch.equal(got, want)
-    with pytest.raises(NotImplementedError, match="A.6"):
-        PT.get_transform("rank1_aug")(imgs, torch.Generator())
+    # rank1_aug draws from the generator too (tests/test_torch_rank1_aug.py
+    # holds it to the JAX package)
+    got = PT.get_transform("rank1_aug")(imgs,
+                                        torch.Generator().manual_seed(5))
+    want = PA.rank1_vn_celeb_aug(torch.Generator().manual_seed(5), imgs)
+    assert got.shape == imgs.shape and torch.equal(got, want)
 
 
 # ---------------------------------------------------------------------------

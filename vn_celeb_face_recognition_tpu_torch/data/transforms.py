@@ -10,7 +10,8 @@ Registered names (the JAX package's):
   facenet_aug  -- rotate +-10, random-crop pad 2, hflip, fix_std
                   (``ops.augment.facenet_aug``: one K1 warp a batch; a
                   uint8 batch is read as it is)
-  rank1_aug    -- training augmentation, not ported yet
+  rank1_aug    -- flip + one of eight photometric augmenters + prewhiten
+                  (``ops.augment.rank1_vn_celeb_aug``)
   emotion_inf  -- area-resize 224, /255, ImageNet normalise
   prewhiten    -- per-image mean/std whitening
   none         -- no transform
@@ -18,7 +19,7 @@ Registered names (the JAX package's):
 
 import torch
 
-from ..ops.augment import facenet_aug
+from ..ops.augment import facenet_aug, rank1_vn_celeb_aug
 from ..ops.image import (
     area_resize,
     fixed_image_standardization,
@@ -37,11 +38,10 @@ def transform_facenet_aug(images, rng):
     return facenet_aug(rng, images)
 
 
-def transform_rank1_aug(images, rng=None):
-    raise NotImplementedError(
-        "the 'rank1_aug' transform (flip + one of eight photometric "
-        "augmenters + prewhiten) is not ported yet; it comes with the "
-        "image-classify trainer, the next slice (ROADMAP.md A.6)")
+def transform_rank1_aug(images, rng):
+    if rng is None:
+        raise ValueError("rank1_aug draws from a torch.Generator; got None")
+    return rank1_vn_celeb_aug(rng, images.to(torch.float32))
 
 
 def transform_emotion_inf(images, rng=None):

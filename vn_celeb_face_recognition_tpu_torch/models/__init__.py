@@ -29,6 +29,8 @@ _FACENET_FILES = {
     "vggface2": "20180402-114759-vggface2",
     "casia-webface": "20180408-102900-casia-webface",
 }
+# the classes of the published facenet heads
+_FACENET_CLASSES = {"vggface2": 8631, "casia-webface": 10575}
 
 
 def _torch_checkpoints():
@@ -98,20 +100,47 @@ def local_weights(name, pretrained):
 def _build_inception_resnet_v1(pretrained=None, classify=False,
                                num_classes=None, dropout_prob=0.6,
                                device=None, weights_path=None, dtype=None):
+    """The JAX constructor's semantics: ``num_classes`` is required for a
+    classify head without ``pretrained``; with ``pretrained`` the head has
+    the dataset's class count unless ``classify`` and ``num_classes`` are
+    both given. Local weights load the trunk strictly, and the head only
+    when it keeps the dataset's class count (else it is seeded afresh)."""
     if pretrained is not None and pretrained not in _FACENET_FILES:
         raise ValueError('Pretrained models only exist for "vggface2" and '
                          '"casia-webface"')
-    _no_head("InceptionResnetV1", classify=classify)
-    module = InceptionResnetV1(dtype=coerce_dtype(dtype))
+    if pretrained is None and classify and num_classes is None:
+        raise ValueError('If "pretrained" is not specified and "classify" '
+                         'is True, "num_classes" must be specified')
+    n_cls = num_classes
+    if pretrained is not None and not (classify and num_classes):
+        n_cls = _FACENET_CLASSES[pretrained]
+    module = InceptionResnetV1(classify=classify,
+                               num_classes=n_cls if classify else None,
+                               dropout_prob=dropout_prob,
+                               dtype=coerce_dtype(dtype))
     if pretrained is None:
         return _seeded(module)
     candidates = _facenet_candidates(pretrained, weights_path)
-    if not _load_first(module, candidates, skip=("logits.",)):
+    path = next((c for c in candidates if c and os.path.exists(c)), None)
+    if path is None:
         print(f"Warning: pretrained='{pretrained}' requested but no local "
               f"weights found (searched {candidates}); "
               "the encoder is randomly initialised. Convert the published "
               "torch checkpoint with tools/convert_weights.py.")
-        _seeded(module)
+        return _seeded(module)
+    sd = read_state_dict(path)
+    head = module.logits
+    if head is not None and (num_classes is None
+                             or num_classes == _FACENET_CLASSES[pretrained]):
+        module.load_state_dict(sd, strict=True)  # the published head
+        return module
+    trunk = {k: v for k, v in sd.items() if not k.startswith("logits.")}
+    missing, unexpected = module.load_state_dict(trunk, strict=False)
+    if unexpected or any(not k.startswith("logits.") for k in missing):
+        raise RuntimeError(f"{path} does not fit InceptionResnetV1: missing "
+                           f"{missing}, unexpected {unexpected}")
+    if head is not None:  # a fresh head, as the reference re-initialises
+        seeded_init_(head, torch.Generator().manual_seed(0))
     return module
 
 

@@ -4,19 +4,33 @@ Counterpart of ``vn_celeb_face_recognition_tpu/models/inception_resnet_v1.py``
 with the torch reference's attribute names, so the published state_dicts
 load with ``load_state_dict(strict=True)``: stem convs -> 5x Block35(0.17)
 -> Mixed_6a -> 10x Block17(0.10) -> Mixed_7a -> 5x Block8(0.20) ->
-Block8(no ReLU) -> global average pool -> Linear(1792->512, no bias) ->
-BatchNorm1d(eps 1e-3) -> L2 normalise.
+Block8(no ReLU) -> global average pool -> dropout -> Linear(1792->512,
+no bias) -> BatchNorm1d(eps 1e-3) -> L2 normalise, or with ``classify``
+the ``logits`` Linear(512 -> num_classes) on the BatchNorm's output and
+log_softmax.
+
+In train mode the BatchNorms use the batch's statistics and update their
+running ones (``layers.batch_norm``, flax's semantics), and dropout
+(``dropout_prob``) drops pooled features with a mask drawn from the
+``generator`` given to ``forward``; in eval mode neither happens.
 
 Dtype contract: parameters stay f32; the trunk and ``last_linear``
-compute in ``dtype``; ``last_bn``, the L2 norm and everything after it
-run in f32.
+compute in ``dtype``; ``last_bn``, the L2 norm or the logits, and
+everything after them run in f32.
 """
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
-from .layers import BasicConv2d, batch_norm, conv, linear, max_pool_ceil
+from .layers import (
+    BasicConv2d,
+    batch_norm,
+    conv,
+    dropout,
+    linear,
+    max_pool_ceil,
+)
 
 
 class Block35(nn.Module):
@@ -102,12 +116,17 @@ class Mixed7a(nn.Module):
 
 
 class InceptionResnetV1(nn.Module):
-    """Embedding encoder: [N, 3, S, S] standardised faces -> [N, 512]
-    unit-norm f32 embeddings."""
+    """[N, 3, S, S] standardised faces -> [N, 512] unit-norm f32
+    embeddings, or with ``classify`` [N, num_classes] f32
+    log-probabilities."""
 
-    def __init__(self, dtype=torch.float32):
+    def __init__(self, classify=False, num_classes=None, dropout_prob=0.6,
+                 dtype=torch.float32):
         super().__init__()
+        if classify and not num_classes:
+            raise ValueError("a classify head needs num_classes")
         self.dtype = dtype
+        self.dropout_prob = float(dropout_prob)
         self.conv2d_1a = BasicConv2d(3, 32, 3, stride=2)
         self.conv2d_2a = BasicConv2d(32, 32, 3)
         self.conv2d_2b = BasicConv2d(32, 64, 3, padding=1)
@@ -122,8 +141,9 @@ class InceptionResnetV1(nn.Module):
         self.block8 = Block8(no_relu=True)
         self.last_linear = nn.Linear(1792, 512, bias=False)
         self.last_bn = nn.BatchNorm1d(512, eps=0.001, momentum=0.1)
+        self.logits = nn.Linear(512, num_classes) if classify else None
 
-    def forward(self, x):
+    def forward(self, x, generator=None):
         x = x.to(self.dtype)
         x = self.conv2d_1a(x)
         x = self.conv2d_2a(x)
@@ -139,6 +159,10 @@ class InceptionResnetV1(nn.Module):
         x = self.repeat_3(x)
         x = self.block8(x)
         x = x.mean(dim=(2, 3))
+        if self.training:
+            x = dropout(x, self.dropout_prob, generator)
         x = linear(self.last_linear, x).to(torch.float32)
         x = batch_norm(self.last_bn, x)
+        if self.logits is not None:
+            return F.log_softmax(linear(self.logits, x), dim=-1)
         return F.normalize(x, dim=-1, eps=1e-12)

@@ -4,6 +4,14 @@ Counterpart of ``vn_celeb_face_recognition_tpu/models/layers.py``.
 Modules hold f32 parameters and compute in the dtype of their input:
 the functional helpers cast each parameter to the activation dtype at
 use (BatchNorm keeps its f32 statistics, as flax does).
+
+BatchNorm follows the module's mode. In eval mode it normalises with the
+running statistics. In train mode it has flax's ``nn.BatchNorm``
+semantics: it normalises with the batch's mean and biased variance (in
+f32), and updates the running statistics as ``running = (1 - m) running +
+m batch`` with torch's momentum ``m`` (flax momentum 1 - m), the variance
+biased too; ``F.batch_norm(training=True)`` would update it with the
+unbiased one, n / (n - 1) larger.
 """
 
 import numpy as np
@@ -30,10 +38,37 @@ def prelu(m: nn.PReLU, x):
 
 
 def batch_norm(m, x):
-    """Inference BatchNorm with f32 running statistics and affine terms
-    (mixed precision when ``x`` is bf16)."""
-    return F.batch_norm(x, m.running_mean, m.running_var, m.weight, m.bias,
-                        False, 0.0, m.eps)
+    """BatchNorm with f32 statistics and affine terms (mixed precision when
+    ``x`` is bf16): the running statistics in eval mode, the batch's in
+    train mode (then the running ones are updated, as flax does)."""
+    if not m.training:
+        return F.batch_norm(x, m.running_mean, m.running_var, m.weight,
+                            m.bias, False, 0.0, m.eps)
+    c = x.shape[1]
+    n = x.numel() // c
+    # momentum 1 gives this batch's mean and unbiased variance
+    dtype = torch.promote_types(x.dtype, torch.float32)
+    mean = torch.zeros(c, dtype=dtype, device=x.device)
+    var = torch.ones(c, dtype=dtype, device=x.device)
+    out = F.batch_norm(x, mean, var, m.weight, m.bias, True, 1.0, m.eps)
+    with torch.no_grad():
+        m.running_mean.mul_(1.0 - m.momentum).add_(mean, alpha=m.momentum)
+        m.running_var.mul_(1.0 - m.momentum).add_(var * ((n - 1) / n),
+                                                  alpha=m.momentum)
+    return out
+
+
+def dropout(x, p, generator):
+    """Zero each element with probability ``p`` and scale the rest by
+    1 / (1 - p), the mask drawn from ``generator``."""
+    if p <= 0.0:
+        return x
+    if p >= 1.0:
+        return torch.zeros_like(x)
+    if generator is None:
+        raise ValueError("dropout in train mode needs a torch.Generator")
+    keep = torch.empty_like(x).bernoulli_(1.0 - p, generator=generator)
+    return x * keep / (1.0 - p)
 
 
 def max_pool_ceil(x, window, stride, ceil_mode=True):

@@ -7,24 +7,10 @@ Dropout acts in train mode only, with its mask drawn from the
 device); in eval mode the module computes the two layers alone.
 """
 
-import torch
 import torch.nn.functional as F
 from torch import nn
 
-from .layers import linear
-
-
-def dropout(x, p, generator):
-    """Zero each element with probability ``p`` and scale the rest by
-    1 / (1 - p), the mask drawn from ``generator``."""
-    if p <= 0.0:
-        return x
-    if p >= 1.0:
-        return torch.zeros_like(x)
-    if generator is None:
-        raise ValueError("dropout in train mode needs a torch.Generator")
-    keep = torch.empty_like(x).bernoulli_(1.0 - p, generator=generator)
-    return x * keep / (1.0 - p)
+from .layers import dropout, linear
 
 
 class MLPModel(nn.Module):

@@ -1,6 +1,7 @@
-"""The training layer: losses, optimizers, checkpoints and the trainers
-(counterpart of the JAX package's ``training/``, its classification
-trainers; detector training is not ported yet)."""
+"""The training layer: losses, optimizers, checkpoints, the trainers and
+the online-aug step ``aug_step`` (counterpart of the JAX package's
+``training/``, its classification trainers; detector training is not
+ported yet)."""
 
 from .checkpoint import load_checkpoint, save_checkpoint
 from .losses import LOSSES, METRICS, accuracy, neg_log_llhood

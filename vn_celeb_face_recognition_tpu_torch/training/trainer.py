@@ -15,16 +15,24 @@ The same behaviour as the JAX trainers:
   * ``eval(save_result=True)`` writing ``result.csv`` (Path, Target,
     Prediction, Probability);
   * ``AugClassificationTrainer``: a frozen encoder, chosen by
-    ``chosen_idx_enc``, between the augmentation and the MLP.
+    ``chosen_idx_enc``, between the augmentation and the MLP;
+  * a model with BatchNorm (``cfg/train_cfg_img_classify.json``'s
+    InceptionResnetV1 with its classify head) trains in train mode: its
+    BatchNorms normalise with the batch's statistics, the loader's padded
+    rows included as in the JAX trainer, and update their running ones
+    once a step (flax's ``batch_stats``); validation runs in eval mode on
+    the running statistics.
 
 In PyTorch's idiom: the model is an ``nn.Module`` on an explicit device,
 built with its weights before the trainer (never lazily from the first
 batch); the step is forward, loss, ``backward`` and torch's optimizer;
 one ``torch.Generator`` on the device draws the augmentation and the
-dropout masks. MultiStepLR has torch's semantics (the JAX trainer
-compounds it; ROADMAP.md C7), and it steps before the epoch's checkpoint
-is written, so that a resumed run continues exactly. Batches reach the
-device through ``data.prefetch_to_device``.
+dropout masks. Image batches (NHWC, as the loader and the transforms
+give them) reach the model or the frozen encoder as NCHW. MultiStepLR
+has torch's semantics (the JAX trainer compounds it; ROADMAP.md C7), and
+it steps before the epoch's checkpoint is written, so that a resumed run
+continues exactly. Batches reach the device through
+``data.prefetch_to_device``.
 
 Only one device: a mesh or ``n_devices`` > 1 raises (ROADMAP.md A.8).
 """
@@ -152,11 +160,13 @@ class BaseTrainer:
             self._loader_state = None
 
     def _prepare_input(self, data, train):
+        """The batch's data through the train or validation transform; an
+        image batch comes out NCHW, the modules' layout."""
         tf = self.train_transform if train else self.val_transform
-        if tf is None:
-            return data
-        with annotate("augment" if train else "transform", self.device):
-            return tf(data, self.generator)
+        if tf is not None:
+            with annotate("augment" if train else "transform", self.device):
+                data = tf(data, self.generator)
+        return data.permute(0, 3, 1, 2) if data.dim() == 4 else data
 
     def _encode(self, x):
         """Hook for trainers that run a frozen encoder before the model."""
@@ -181,17 +191,28 @@ class BaseTrainer:
     def _update(self, x, target, weight):
         """Forward, loss, backward and the optimizer's step on the model's
         input ``x``; the step's values as ``_train_step`` returns them."""
-        with annotate("mlp_step", self.device):
+        loss, out = self._forward_backward(x, target, weight)
+        self._optimizer_step()
+        with torch.no_grad():
+            vals = torch.stack([loss.detach(), weight.sum(),
+                                *self._metrics(out, target, weight)])
+        return vals.tolist()
+
+    def _forward_backward(self, x, target, weight):
+        """The model in train mode on ``x`` (its BatchNorms update their
+        running statistics), the loss and its gradients. Returns (loss,
+        model output)."""
+        with annotate("forward_backward", self.device):
             self.model.train()
             out = self.model(x, generator=self.generator)
             loss = self.loss_fn(out, target, weight)
             self.optimizer.zero_grad(set_to_none=True)
             loss.backward()
+            return loss, out.detach()
+
+    def _optimizer_step(self):
+        with annotate("optimizer", self.device):
             self.optimizer.step()
-            with torch.no_grad():
-                vals = torch.stack([loss.detach(), weight.sum(),
-                                    *self._metrics(out, target, weight)])
-            return vals.tolist()
 
     @torch.no_grad()
     def _eval_step(self, batch):
@@ -431,4 +452,4 @@ class AugClassificationTrainer(ClassificationTrainer):
 
     def _encode(self, x):
         with annotate("encode", self.device), torch.no_grad():
-            return self.encoder(x.permute(0, 3, 1, 2)).to(torch.float32)
+            return self.encoder(x).to(torch.float32)
