@@ -137,6 +137,20 @@ Phases, one line of output each (a failed phase exits non-zero):
       training.aug_step at bench.py's train shape (iresnet100 bf16, MLP
       1001, 256 faces of 112 px): median step, images/s, one K1 launch a
       step, K1 at 256x112 against its plain version and bound.
+  25. FAN and the dataset tools: fan, FANLandmarker (4 modules, seeded) on
+      64 face crops of 96-224 px in f32 (TF32 off and on) and bf16, ms a
+      batch, faces/s and TFLOP/s beside the bound, batch 1, the busy
+      share, bf16 drift <= one heatmap cell; fan-card-vs-cpu, each
+      module's heatmaps on 2 faces within 1e-4 of max|heatmap| and the
+      decode of the same heatmaps equal; fan-seq, demo_image
+      seq_fd_vs_aln --fan_weights (a seeded .npz) on a 640x640 frame with
+      4 faces, MTCNN's and K1's launches exact, card vs CPU; dataset-tools,
+      crop_face, split_train_val and align_face (MTCNN, then
+      --fan_weights) through main() on data/'s 20 faces, two two-face
+      frames, a faceless image and a broken file, images/s and stage
+      means, launches exact per detect call and aligned image; and
+      dataset-tools-card-vs-cpu, the same with -dv cpu: equal files,
+      manifests and crops, aligned faces within 1 level.
 
 Kernel phases check bf16 at the lines' shapes and f32 on a slice of
 them; exact kernels (K3, K4) are held with torch.equal. Every kernel is
@@ -265,6 +279,7 @@ REC_LAUNCHES = {
                    "bottleneck_chain": 15}}
 # NVIDIA H100 SXM data-sheet peaks (dense), at the 700 W limit
 PEAK_BF16, PEAK_F32, PEAK_BYTES = 989e12, 67e12, 3.35e12
+PEAK_TF32 = 495e12
 # a bf16 kernel is held to its plain version computed in f32 on the same
 # inputs: the kernels accumulate in f32 and round to bf16 (8 significant
 # bits, eps 2**-8) at their outputs and, for K6 and K8, at a few staged
@@ -1562,6 +1577,22 @@ def recognition_flows(pipeline, dets, models, tables):
         "retinaface-parallel": (retina_flow, penc)}
 
 
+def pair_boxes(got, want):
+    """Each of ``got``'s boxes paired with the nearest of ``want``'s: the
+    permutation and the largest pair difference (None when they do not
+    pair up)."""
+    if len(got) != len(want):
+        return None, None
+    if not len(got):
+        return [], 0.0
+    d = np.abs(np.asarray(got, np.float64)[:, None]
+               - np.asarray(want, np.float64)[None]).max(-1)
+    perm = d.argmin(1)
+    if sorted(perm.tolist()) != list(range(len(want))):
+        return None, None
+    return perm, float(d[np.arange(len(got)), perm].max())
+
+
 def compare_flows(pipeline, what, gpu, cpu, gpu_enc, cpu_enc):
     """One flow's outputs on the card against the CPU's, f32, 2 frames:
     equal face counts per frame; each card box paired with the nearest CPU
@@ -1574,13 +1605,11 @@ def compare_flows(pipeline, what, gpu, cpu, gpu_enc, cpu_enc):
         if len(gb) != len(cb) or len(gb) == 0:
             fail(f"{what}: frame {i}: {len(gb)} faces on the card, "
                  f"{len(cb)} on the CPU")
-        d = np.abs(np.asarray(gb, np.float64)[:, None]
-                   - np.asarray(cb, np.float64)[None]).max(-1)
-        perm = d.argmin(1)
-        if sorted(perm.tolist()) != list(range(len(cb))):
+        perm, err = pair_boxes(gb, cb)
+        if perm is None:
             fail(f"{what}: frame {i}: the card's boxes do not pair up with "
                  "the CPU's")
-        box_err = max(box_err, float(d[np.arange(len(gb)), perm].max()))
+        box_err = max(box_err, err)
         gf = np.stack(gpu["faces"][i])
         cf = np.stack(cpu["faces"][i])[perm]
         level = max(level, int(np.abs(gf.astype(np.int16)
@@ -3084,6 +3113,551 @@ def aug_step_line(torch, kernels, K1, dev, card, results):
           f"read) ({TIMING}; {card})")
 
 
+# phase 25 (FAN and the dataset tools): FAN_FACES face crops a timed batch,
+# the data/ PNGs resized to FAN_SIDES px in turn, each crop its own box;
+# FAN_CALLS timed calls. FAN_REL bounds each module's heatmaps card vs CPU
+# in f32 (TF32 off), relative to max|heatmap|.
+FAN_FACES, FAN_CALLS, FAN_MODULES = 64, 10, 4
+FAN_SIDES = (96, 128, 160, 192, 224)
+FAN_REL = 1e-4
+# launches of one MTCNN detect (the default line's cascade, no warp)
+DETECT_LAUNCHES = {k: n for k, n in MTCNN_LINE_LAUNCHES.items()
+                   if k != "similarity_warp"}
+
+
+def fan_faces(n):
+    """``n`` face crops (the data/ PNGs resized to FAN_SIDES px in turn)
+    zero-padded into one uint8 batch, and their boxes: each crop's own
+    extent, as the seq path hands its crops to FAN."""
+    import cv2
+
+    from vn_celeb_face_recognition_tpu_torch.utils.frames import face_files
+
+    files = face_files()
+    side = max(FAN_SIDES)
+    batch = np.zeros((n, side, side, 3), np.uint8)
+    boxes = np.zeros((n, 4), np.float32)
+    for i in range(n):
+        s = FAN_SIDES[i % len(FAN_SIDES)]
+        bgr = cv2.imread(files[i % len(files)])
+        batch[i, :s, :s] = cv2.resize(bgr, (s, s),
+                                      interpolation=cv2.INTER_AREA)[..., ::-1]
+        boxes[i, 2:] = s
+    return batch, boxes
+
+
+def fan_flops(torch, num_modules):
+    """FLOP of one face through a ``num_modules`` FAN at 256 px (two a
+    multiply-add), by torch.utils.flop_counter on these shapes, traced on
+    the meta device (no data, no device work)."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from vn_celeb_face_recognition_tpu_torch.models.fan import FAN
+
+    with torch.device("meta"):
+        net = FAN(num_modules=num_modules).eval()
+        x = torch.zeros((1, 3, 256, 256))
+    with torch.no_grad(), FlopCounterMode(display=False) as counter:
+        net(x)
+    return counter.get_total_flops()
+
+
+def write_fan_npz(torch, path):
+    """A seeded 4-module FAN as a torch-keyed .npz without
+    num_batches_tracked, as the released 2DFAN4 checkpoint is keyed."""
+    from vn_celeb_face_recognition_tpu_torch.models.fan import FAN
+    from vn_celeb_face_recognition_tpu_torch.models.layers import (
+        seeded_init_,
+    )
+
+    net = seeded_init_(FAN(num_modules=FAN_MODULES),
+                       torch.Generator().manual_seed(3))
+    np.savez(path, **{k: v.numpy() for k, v in net.state_dict().items()
+                      if not k.endswith("num_batches_tracked")})
+    return path
+
+
+def phase_fan(torch, kernels, dev, card, results):
+    """25. FAN and the dataset tools, through the port's entry points.
+    ``fan``: FANLandmarker (4 modules, seeded) on FAN_FACES face crops of
+    96-224 px in f32 (TF32 off, and on as users run it) and bf16: median
+    ms a batch (CUDA events around landmarks_for_boxes, copies included),
+    the device time, faces/s and TFLOP/s at the counted FLOP beside the
+    bound; get_landmarks at batch 1; the busy share of one profiled batch;
+    bf16 against f32, median landmark drift <= one heatmap cell.
+    ``fan-card-vs-cpu``: 2 faces in f32: the crops within 1e-5, each
+    module's heatmaps within FAN_REL of max|heatmap|, the decode of the
+    same heatmaps equal on both devices. ``fan-seq``:
+    demo_image.recognize_image with seq_fd_vs_aln and --fan_weights (a
+    seeded 4-module .npz) on a 640x640 frame with 4 faces, the geometric
+    gate wrapped to accept while still running it; launches held to exact
+    per-call counts; the card against the CPU (equal names, boxes within
+    1e-2 px). ``dataset-tools``: crop_face, split_train_val, align_face
+    with MTCNN and with --fan_weights through their main() on the 20 face
+    PNGs of data/, two frames with two faces, a faceless image and a file
+    that is no image; images/s and stage means; launches held to exact
+    counts (MTCNN's per detect call, K1's per aligned image).
+    ``dataset-tools-card-vs-cpu``: the same with -dv cpu on the same
+    inputs: equal file names, manifests and crops, aligned PNGs within 1
+    level."""
+    import shutil
+    import tempfile
+
+    os.chdir(HERE)  # the CLIs' flags name files from the repo root
+    os.makedirs(os.path.join(HERE, "build"), exist_ok=True)
+    work = tempfile.mkdtemp(prefix="fan_smoke_", dir=os.path.join(HERE,
+                                                                  "build"))
+    try:
+        npz = write_fan_npz(torch, os.path.join(work, "fan4.npz"))
+        fan_line(torch, dev, card)
+        fan_seq(torch, kernels, dev, card, results, npz)
+        dataset_tools(torch, kernels, dev, card, results, work, npz)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+
+def fan_line(torch, dev, card):
+    """Phase 25's ``fan`` and ``fan-card-vs-cpu`` lines."""
+    from vn_celeb_face_recognition_tpu_torch.models import fan as FM
+
+    lm32 = FM.FANLandmarker(num_modules=FAN_MODULES, device=dev)
+    lm16 = FM.FANLandmarker(num_modules=FAN_MODULES, dtype="bfloat16",
+                            state_dict=lm32.net.state_dict(), device=dev)
+    batch, boxes = fan_faces(FAN_FACES)
+    flops = fan_flops(torch, FAN_MODULES)
+    weight_bytes = sum(t.numel() * t.element_size() for t in
+                       lm32.net.state_dict().values())
+    nbytes = batch.nbytes + boxes.nbytes + weight_bytes + FAN_FACES * 68 * 8
+    parts, pts, batch_ms = [], {}, {}
+    for label, lm, peak, tf32 in (("f32", lm32, PEAK_F32, False),
+                                  ("f32 TF32", lm32, PEAK_TF32, True),
+                                  ("bf16", lm16, PEAK_BF16, False)):
+        torch.backends.cudnn.allow_tf32 = tf32
+        try:
+            def call(lm=lm):
+                return lm.landmarks_for_boxes(batch, boxes)
+
+            pts[label] = call()
+            ms = median_ms(torch, call, runs=FAN_CALLS, warmup=2)
+            dev_ms = device_ms(torch, call, runs=3)
+        finally:
+            torch.backends.cudnn.allow_tf32 = False
+        if not np.isfinite(pts[label]).all():
+            fail(f"fan {label}: non-finite landmarks")
+        bound_ms, bound_by = bound(nbytes, FAN_FACES * flops, peak)
+        batch_ms[label] = ms
+        parts.append(
+            f"{label}: median {ms:.2f} ms a batch of {FAN_FACES} = "
+            f"{ms / FAN_FACES:.3f} ms a face, {FAN_FACES / ms * 1e3:.1f} "
+            f"faces/s; device {dev_ms:.2f} ms = "
+            f"{FAN_FACES * flops / dev_ms / 1e9:.1f} TFLOP/s; bound "
+            f"{bound_ms:.2f} ms ({bound_by})")
+    one = batch[0, :FAN_SIDES[0], :FAN_SIDES[0]]
+    b1 = {label: median_ms(torch, lambda lm=lm: lm.get_landmarks(one),
+                           runs=20)
+          for label, lm in (("f32", lm32), ("bf16", lm16))}
+    busy, top = busy_ms(torch, lambda: lm32.landmarks_for_boxes(batch,
+                                                                boxes))
+    f32_ms = batch_ms["f32"]
+    cell = (200.0 * FM.box_center_scale(boxes)[1].numpy() / 64.0)[:, None]
+    drift = np.linalg.norm(pts["bf16"] - pts["f32"], axis=-1) / cell
+    phase("fan", f"FANLandmarker({FAN_MODULES} modules, seeded, "
+          f"{sum(p.numel() for p in lm32.net.parameters()) / 1e6:.1f} M "
+          f"weights, {flops / 1e9:.2f} GFLOP a face at 256 px by "
+          f"torch.utils.flop_counter) on {FAN_FACES} face crops of "
+          f"{FAN_SIDES[0]}-{FAN_SIDES[-1]} px: " + "; ".join(parts)
+          + f" (CUDA events around landmarks_for_boxes, copies included, "
+          f"median of {FAN_CALLS}; device time from torch.profiler, mean of "
+          f"3); batch 1"
+          f" get_landmarks median f32 {b1['f32']:.2f} ms, bf16 "
+          f"{b1['bf16']:.2f} ms; one profiled f32 batch device busy "
+          f"{busy:.2f} ms = {busy / f32_ms:.1%} of {f32_ms:.2f} ms (top: "
+          f"{top}); bf16 vs f32 landmark drift median {np.median(drift):.3f}"
+          f" heatmap cells (<= 1), {(drift <= 4).mean():.1%} within 4 cells, "
+          f"max {drift.max():.1f}; {card}")
+    if np.median(drift) > 1.0:
+        fail("fan: bf16 landmarks drift more than one heatmap cell")
+
+    # the card against the CPU, f32, TF32 off, 2 faces
+    cpu = FM.FANLandmarker(num_modules=FAN_MODULES, device="cpu",
+                           state_dict=lm32.net.state_dict())
+    images = torch.from_numpy(batch[:2])
+    centers, scales = FM.box_center_scale(boxes[:2])
+    crops = FM.crop_face_window(images, centers, scales)
+    crop_err = float((FM.crop_face_window(
+        images.to(dev), centers.to(dev), scales.to(dev)).cpu()
+        - crops).abs().max())
+    x = crops.permute(0, 3, 1, 2)
+    with torch.no_grad():
+        want = cpu.net(x)
+        got = [h.cpu() for h in lm32.net(x.to(dev))]
+    rels = [float((g - w).abs().max() / w.abs().max())
+            for g, w in zip(got, want)]
+    on_card = FM.decode_heatmaps(got[-1].to(dev), centers.to(dev),
+                                 scales.to(dev)).cpu()
+    on_cpu = FM.decode_heatmaps(got[-1], centers, scales)
+    same = int((FM.decode_heatmaps(want[-1], centers, scales)
+                == on_cpu).all(-1).sum())
+    phase("fan-card-vs-cpu", f"2 faces, f32, TF32 off: crops max diff "
+          f"{crop_err:.2e} (<= 1e-5); heatmaps max diff / max|heatmap| per "
+          f"module {', '.join(f'{r:.2e}' for r in rels)} (<= {FAN_REL}); "
+          f"decode of the card's heatmaps equal on both devices "
+          f"{bool(torch.equal(on_card, on_cpu))}; {same} of 136 landmarks "
+          "equal when each device decodes its own heatmaps (not gated: the "
+          "seeded maps are nearly flat)")
+    if crop_err > 1e-5 or max(rels) > FAN_REL or not torch.equal(on_card,
+                                                                 on_cpu):
+        fail("fan card vs CPU outside tolerance")
+
+
+def fan_seq(torch, kernels, dev, card, results, npz):
+    """Phase 25's ``fan-seq`` line."""
+    from vn_celeb_face_recognition_tpu_torch.cli import demo_image as DI
+    from vn_celeb_face_recognition_tpu_torch.models import fan as FM
+    from vn_celeb_face_recognition_tpu_torch.utils.frames import build_frames
+
+    parser = DI.build_arg_parser()
+    flags = ["-m", "", "-l2n", "meta_data/face_recognition/label2name.txt",
+             "-nc", str(REC_CLASSES), "--inference_method", "seq_fd_vs_aln",
+             "--fan_weights", npz]
+    img = build_frames(1, SIZE, FACES_PER_FRAME)[0]
+    verdicts, real = [], FM.reduce_to_5_points
+
+    def lenient(pts):
+        dst, ok = real(pts)
+        verdicts.append(ok)
+        return dst, True
+
+    out = {}
+    FM.reduce_to_5_points = lenient
+    try:
+        for where in ("cuda", "cpu"):
+            args = parser.parse_args(flags + ["-dv", where])
+            with contextlib.redirect_stdout(io.StringIO()):
+                models = DI.setup_models(args)
+                fan = DI.build_fan_model(args)
+                out[where] = DI.recognize_image(args, models, img, fan)
+            if where == "cpu":
+                continue
+            torch.cuda.synchronize()
+            kernels.reset_launch_counts()
+            verdicts.clear()
+            times = []
+            for _ in range(REC_CALLS):
+                t0 = time.perf_counter()
+                with contextlib.redirect_stdout(io.StringIO()):
+                    names, boxes, _, _ = DI.recognize_image(args, models,
+                                                            img, fan)
+                torch.cuda.synchronize()
+                times.append((time.perf_counter() - t0) * 1e3)
+            counts = kernels.launch_counts()
+            check_line_counts(counts, MTCNN_LINE_LAUNCHES, REC_CALLS,
+                              "fan-seq", results)
+            launched = {k: n for k, n in counts.items() if n}
+            if len(names) != FACES_PER_FRAME:
+                fail(f"fan-seq: {len(names)} faces kept of "
+                     f"{FACES_PER_FRAME}")
+            accepted = sum(verdicts) / REC_CALLS
+    finally:
+        FM.reduce_to_5_points = real
+    (g_names, g_boxes), (c_names, c_boxes) = (out["cuda"][:2],
+                                              out["cpu"][:2])
+    perm, box_err = pair_boxes(g_boxes, c_boxes)
+    names_equal = perm is not None and list(g_names) == [c_names[j]
+                                                          for j in perm]
+    times.sort()
+    phase("fan-seq", f"demo_image.recognize_image seq_fd_vs_aln "
+          f"--fan_weights (a seeded {FAN_MODULES}-module .npz) on one "
+          f"{SIZE}x{SIZE} frame with {FACES_PER_FRAME} faces, MTCNN + "
+          f"InceptionResnetV1 + MLP {REC_CLASSES}, f32: median "
+          f"{times[len(times) // 2]:.2f} ms a call (host clock, {REC_CALLS} "
+          f"calls; min {times[0]:.2f}); {len(names)} faces kept, the real "
+          f"gate accepted {accepted:.0f} of them a call (the gate wrapped to "
+          f"accept, still run); launches {launched} held to "
+          f"{MTCNN_LINE_LAUNCHES} a call; card vs CPU: names equal "
+          f"{names_equal}, max box diff "
+          f"{'unpaired' if box_err is None else f'{box_err:.2e}'} (atol "
+          f"1e-2); {card}")
+    if not names_equal or box_err > 1e-2:
+        fail(f"fan-seq card vs CPU: names {g_names} / {c_names}, boxes "
+             f"{g_boxes} / {c_boxes}")
+
+
+def dataset_inputs(root):
+    """The tools' inputs: the 20 face PNGs of data/, two 400x200 frames
+    with two faces each, a faceless gradient and a file that is no
+    image."""
+    import shutil
+
+    import cv2
+
+    from vn_celeb_face_recognition_tpu_torch.utils.frames import face_files
+
+    os.makedirs(root)
+    files = face_files()
+    for f in files:
+        shutil.copy(f, root)
+    for i in range(2):
+        frame = np.full((200, 400, 3), 90, np.uint8)
+        for j in range(2):
+            face = cv2.resize(cv2.imread(files[2 * i + j]), (150, 150))
+            frame[25:175, 30 + 200 * j:180 + 200 * j] = face
+        cv2.imwrite(os.path.join(root, f"two_faces_{i}.png"), frame)
+    yy, xx = np.mgrid[0:150, 0:170]
+    blank = np.stack([yy, xx, (yy + xx) // 2], -1).astype(np.uint8)
+    cv2.imwrite(os.path.join(root, "blank.png"), blank)
+    with open(os.path.join(root, "broken.png"), "wb") as fp:
+        fp.write(b"not an image")
+    return len(files) + 4
+
+
+def run_tools(torch, kernels, where, raw, out, to_align, npz, counted):
+    """crop_face and split_train_val on ``raw``, then align_face (MTCNN,
+    then --fan_weights) on ``to_align`` (made from the crops and the
+    faceless image by the first run), through their main() on ``where``,
+    writing under ``out``. With --fan_weights the geometric gate is
+    wrapped to accept while still running it (seeded landmarks seldom
+    pass; MTCNN's run drives the blur sweep and the fallback). Returns
+    ({tool: (wall s, images, stats, stage means, launches, detect
+    calls)}, FAN's [(68 landmarks, box)] an image, the real gate's
+    verdicts); on the card each tool's launches are held to MTCNN's per
+    detect call and K1's per aligned image."""
+    import shutil
+
+    from vn_celeb_face_recognition_tpu_torch.cli import align_face as AF
+    from vn_celeb_face_recognition_tpu_torch.cli import crop_face as CF
+    from vn_celeb_face_recognition_tpu_torch.cli import split_train_val as SV
+    from vn_celeb_face_recognition_tpu_torch.models import fan as FM
+    from vn_celeb_face_recognition_tpu_torch.models.mtcnn import MTCNN
+    from vn_celeb_face_recognition_tpu_torch.utils.tracing import StageTimer
+
+    os.makedirs(out)
+    crops = os.path.join(out, "crops")
+    calls, fan_pts, verdicts, report = [0], [], [], {}
+
+    def counting(orig):
+        def inference(self, *args, **kwargs):
+            calls[0] += 1
+            return orig(self, *args, **kwargs)
+        return inference
+
+    def recording(orig):
+        def get_landmarks(self, rgb_image, detected_box=None):
+            pts = orig(self, rgb_image, detected_box)
+            h, w = rgb_image.shape[:2]
+            fan_pts.append((pts[0], np.asarray(
+                [0, 0, w, h] if detected_box is None else detected_box,
+                np.float32)))
+            return pts
+        return get_landmarks
+
+    def lenient(orig):
+        def reduce(points68):
+            dst, ok = orig(points68)
+            verdicts.append(ok)
+            return dst, True
+        return reduce
+
+    def run(tool, fn, n_images):
+        timer = StageTimer()
+        calls[0] = 0
+        if where == "cuda":
+            torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()):
+            stats = fn(timer)
+        if where == "cuda":
+            torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        counts = kernels.launch_counts()
+        if where == "cuda" and tool != "split_train_val":
+            aligned = (stats["total"] - stats["no_face"]
+                       if tool.startswith("align") else 0)
+            want = {k: DETECT_LAUNCHES.get(k, 0) * calls[0]
+                    + (aligned if k == "similarity_warp" else 0)
+                    for k in counts}
+            if counts != want:
+                fail(f"dataset-tools {tool}: launches {counts}, want {want} "
+                     f"for {calls[0]} detect calls and {aligned} aligned "
+                     "images")
+            for k, n in counts.items():
+                counted[k] = counted.get(k, 0) + n
+        report[tool] = (secs, n_images, stats, {
+            name: st["mean_ms"] for name, st in timer.report().items()},
+            {k: n for k, n in counts.items() if n}, calls[0])
+
+    dv = ["-dv", where]
+    with patched(MTCNN, "inference", counting):
+        run("crop_face", lambda t: CF.main(dv + [
+            "-id", raw, "-od", crops, "-nf", os.path.join(out, "unknown.txt"),
+            "-mf", os.path.join(out, "many_boxes.txt")], timer=t),
+            len(os.listdir(raw)))
+        names = sorted(os.listdir(crops))
+        with open(os.path.join(out, "train.csv"), "w") as fp:
+            fp.write("image,label\n")
+            fp.writelines(f"{n},{(2, 10, 7)[i % 3]}\n"
+                          for i, n in enumerate(names))
+        run("split_train_val", lambda t: SV.main([
+            "-d", os.path.join(out, "train.csv"), "-o",
+            os.path.join(out, "vn_celeb.json"), "-tr",
+            os.path.join(out, "train.json"), "-v",
+            os.path.join(out, "val.json"), "--remap_key"]), len(names))
+        if not os.path.isdir(to_align):
+            os.makedirs(to_align)
+            for n in names:
+                shutil.copy(os.path.join(crops, n), to_align)
+            shutil.copy(os.path.join(raw, "blank.png"), to_align)
+        n_align = len(os.listdir(to_align))
+        run("align_face", lambda t: AF.main(dv + [
+            "-id", to_align, "-od", os.path.join(out, "aligned_mtcnn"), "-as",
+            "112", "112", "-nf", os.path.join(out, "unknown_mtcnn.txt")],
+            timer=t), n_align)
+        with patched(FM.FANLandmarker, "get_landmarks", recording), \
+                patched(FM, "reduce_to_5_points", lenient):
+            run("align_face --fan_weights", lambda t: AF.main(dv + [
+                "-id", to_align, "-od", os.path.join(out, "aligned_fan"),
+                "-as", "112", "112", "-nf",
+                os.path.join(out, "unknown_fan.txt"), "--fan_weights",
+                npz], timer=t), n_align)
+    return report, fan_pts, verdicts
+
+
+def same_tree(a, b, levels, skip=()):
+    """Files under ``a`` against ``b``: equal names; PNGs (read by cv2)
+    of the same shape, crops equal and the others within ``levels``, other
+    files equal byte for byte; the PNGs under the ``skip`` prefixes are
+    left to the caller. Returns (files, PNGs held, largest level
+    difference) or fails."""
+    import cv2
+
+    names = sorted(os.path.relpath(os.path.join(d, f), a)
+                   for d, _, fs in os.walk(a) for f in fs)
+    other = sorted(os.path.relpath(os.path.join(d, f), b)
+                   for d, _, fs in os.walk(b) for f in fs)
+    if names != other:
+        fail(f"dataset-tools card vs CPU: files {names} / {other}")
+    worst, n_img = 0, 0
+    for name in names:
+        pa, pb = os.path.join(a, name), os.path.join(b, name)
+        if name.endswith(".png"):
+            if name.startswith(skip):
+                continue
+            ia, ib = cv2.imread(pa), cv2.imread(pb)
+            if ia.shape != ib.shape:
+                fail(f"dataset-tools card vs CPU: {name} {ia.shape} / "
+                     f"{ib.shape}")
+            diff = int(np.abs(ia.astype(np.int16) - ib).max())
+            lim = 0 if name.startswith("crops") else levels
+            if diff > lim:
+                fail(f"dataset-tools card vs CPU: {name} differs by {diff} "
+                     f"levels (<= {lim})")
+            worst, n_img = max(worst, diff), n_img + 1
+        else:
+            with open(pa, "rb") as fa, open(pb, "rb") as fb:
+                if fa.read() != fb.read():
+                    fail(f"dataset-tools card vs CPU: {name} differs")
+    return len(names), n_img, worst
+
+
+def fan_aligned_card_vs_cpu(work, to_align, gpu_pts, cpu_pts):
+    """align_face --fan_weights card vs CPU, each device on its own FAN
+    landmarks (seeded maps are nearly flat, so an argmax may flip on a
+    rounding difference): the drift of the 68 landmarks in heatmap cells
+    (median <= 1, the bf16 gate's), and the aligned PNG within 1 level for
+    every image whose landmarks agree within 1e-3 px on both devices.
+    Returns a summary."""
+    import cv2
+
+    from vn_celeb_face_recognition_tpu_torch.models.fan import (
+        box_center_scale,
+    )
+
+    names = sorted(os.listdir(to_align))
+    if len(gpu_pts) != len(names) or len(cpu_pts) != len(names):
+        fail(f"dataset-tools FAN: {len(gpu_pts)} / {len(cpu_pts)} FAN calls "
+             f"for {len(names)} images")
+    drift, held, worst = [], 0, 0
+    for name, (g, box), (c, cbox) in zip(names, gpu_pts, cpu_pts):
+        if np.abs(box - cbox).max() > 1e-2:
+            fail(f"dataset-tools FAN {name}: FAN boxes {box} / {cbox}")
+        cell = 200.0 * float(box_center_scale(box)[1]) / 64.0
+        drift.append(np.linalg.norm(g - c, axis=-1) / cell)
+        if np.abs(g - c).max() <= 1e-3:
+            ia, ib = (cv2.imread(os.path.join(work, d, "aligned_fan", name))
+                      for d in ("cuda", "cpu"))
+            diff = int(np.abs(ia.astype(np.int16) - ib).max())
+            if diff > 1:
+                fail(f"dataset-tools FAN {name}: equal landmarks, aligned "
+                     f"faces differ by {diff} levels")
+            held, worst = held + 1, max(worst, diff)
+    drift = np.concatenate(drift)
+    if not held:
+        fail("dataset-tools FAN: no image's landmarks agree on both devices")
+    if np.median(drift) > 1.0:
+        fail(f"dataset-tools FAN: landmark drift card vs CPU median "
+             f"{np.median(drift):.3f} heatmap cells (<= 1)")
+    return (f"align_face --fan_weights: landmark drift median "
+            f"{np.median(drift):.2e} heatmap cells (<= 1), max "
+            f"{drift.max():.2e}; {held} of {len(names)} images with their "
+            f"landmarks within 1e-3 px on both devices, their aligned faces "
+            f"within {worst} levels (<= 1)")
+
+
+def dataset_tools(torch, kernels, dev, card, results, work, npz):
+    """Phase 25's ``dataset-tools`` and ``dataset-tools-card-vs-cpu``
+    lines."""
+    raw = os.path.join(work, "raw")
+    dataset_inputs(raw)
+    to_align = os.path.join(work, "to_align")
+    counted, runs = {}, {}
+    for where in ("cuda", "cpu"):
+        runs[where] = run_tools(torch, kernels, where, raw,
+                                os.path.join(work, where), to_align, npz,
+                                counted)
+    for k, n in counted.items():
+        if n:
+            results[k]["launches"] = results[k].get("launches", 0) + n
+            results[k]["dataset_tools_launches"] = n
+    report, gpu_pts, verdicts = runs["cuda"]
+    parts = []
+    for tool, (secs, n, stats, stages, counts, det) in report.items():
+        shown = ", ".join(f"{k} {v:.2f}" for k, v in stages.items())
+        parts.append(f"{tool}: {n} images in {secs:.2f} s = {n / secs:.1f} "
+                     f"images/s (host clock); stats "
+                     f"{stats if isinstance(stats, dict) else '-'}; stage "
+                     f"means ms: {shown or '-'}; {det} detect calls; "
+                     f"launches {counts}")
+    crop_stats = report["crop_face"][2]
+    if crop_stats != {"total": 24, "no_face": 2, "many_faces": 2,
+                      "skipped": 0}:
+        fail(f"dataset-tools crop_face stats {crop_stats}")
+    with open(os.path.join(work, "cuda", "unknown_mtcnn.txt")) as fp:
+        if os.path.join(to_align, "blank.png") not in fp.read().split("\n"):
+            fail("dataset-tools align_face: the faceless image was aligned")
+    phase("dataset-tools", "through main() on the card: crop_face on the 20 "
+          "face PNGs of data/, two 400x200 frames with two faces, a faceless"
+          " image and a file that is no image; split_train_val --remap_key "
+          "on the crops; align_face -as 112 112 on the crops and the "
+          "faceless image, with MTCNN (cfg/detection/mtcnn.json) and with "
+          f"--fan_weights (a seeded {FAN_MODULES}-module .npz, f32; the gate"
+          f" wrapped to accept, still run: the real gate accepted "
+          f"{sum(verdicts)} of {len(verdicts)}); launches held to "
+          f"{DETECT_LAUNCHES} a detect call and one K1 an aligned image: "
+          + "; ".join(parts) + f"; {card}")
+    files, images, worst = same_tree(os.path.join(work, "cuda"),
+                                     os.path.join(work, "cpu"), 1,
+                                     skip=("aligned_fan",))
+    fan_part = fan_aligned_card_vs_cpu(work, to_align, gpu_pts,
+                                       runs["cpu"][1])
+    cpu_s = {t: r[0] for t, r in runs["cpu"][0].items()}
+    phase("dataset-tools-card-vs-cpu", f"the same tools with -dv cpu on the "
+          f"same inputs: {files} files with equal names; manifests and JSON "
+          f"equal byte for byte; {images} PNGs of crop_face and align_face "
+          f"(MTCNN): crops equal, aligned faces within {worst} levels (<= "
+          f"1); {fan_part}; CPU walls "
+          + ", ".join(f"{t} {s:.2f} s" for t, s in cpu_s.items()))
+
 def main():
     if not os.path.isdir(os.path.join(HERE, PKG)):
         fail(f"no {PKG} package beside {os.path.basename(__file__)}; run "
@@ -3104,6 +3678,11 @@ def main():
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     t_start = time.perf_counter()
+    laps = []  # (phases, s since the previous lap), for the done line
+
+    def lap(phases):
+        laps.append((phases, time.perf_counter() - t_start
+                     - sum(s for _, s in laps)))
 
     import torch.nn.functional as F
 
@@ -3155,6 +3734,8 @@ def main():
     stock = torch.from_numpy(stock_np).to(dev)
     results = {}
 
+    lap("2")
+
     # ---- 3. K2 vs plain ------------------------------------------------
     det = MTCNN(dtype=torch.bfloat16, device=dev, **DETECTOR)
     pyramids = []
@@ -3176,6 +3757,7 @@ def main():
     phase_k4(torch, kernels, K4, stock, big, pasted, card, results)
     del big
     phase_k5(torch, kernels, K5, det, card, results)
+    lap("3-7")
 
     # ---- 8. the default slice ------------------------------------------
     g = torch.Generator().manual_seed(0)
@@ -3261,6 +3843,7 @@ def main():
     big_frame_detect(torch, kernels, MTCNN, big_np, pasted, dev)
     del stock, big_np
     torch.cuda.empty_cache()
+    lap("8-14")
 
     # ---- production models ---------------------------------------------
     prod_np = build_frames(PROD_BATCH, SIZE, FACES_PER_FRAME)
@@ -3460,21 +4043,31 @@ def main():
 
     del prod, rdet, penc, pclf, emo, penc_cpu, pclf_cpu, emo_cpu, eng
     torch.cuda.empty_cache()
+    lap("15-20")
 
     # ---- 21. the recognition library -------------------------------------
     phase_recognition(torch, F, kernels, K1, dev, card, results)
     torch.cuda.empty_cache()
+    lap("21")
 
     # ---- 22. the CLIs ----------------------------------------------------
     phase_cli(torch, kernels, dev, card, results)
     torch.cuda.empty_cache()
+    lap("22")
 
     # ---- 23. the trainers ------------------------------------------------
     phase_train(torch, kernels, K1, dev, card, results)
     torch.cuda.empty_cache()
+    lap("23")
 
     # ---- 24. the image-classify trainer and the online-aug step ----------
     phase_train_img(torch, kernels, K1, dev, card, results)
+    torch.cuda.empty_cache()
+    lap("24")
+
+    # ---- 25. FAN and the dataset tools -------------------------------------
+    phase_fan(torch, kernels, dev, card, results)
+    lap("25")
 
     kernel_rows = []
     for kname, (src, replaces) in KERNEL_SOURCES.items():
@@ -3489,7 +4082,8 @@ def main():
             "bound_by": r.pop("bound_by"), "library_ms": r.pop("library_ms"),
             **r})
     phase("done", f"all phases passed in {time.perf_counter() - t_start:.1f}"
-          " s after the card check")
+          " s after the card check (s by phase: "
+          + ", ".join(f"{p} {s:.1f}" for p, s in laps) + ")")
     print(json.dumps({"kernels": kernel_rows}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -753,13 +753,9 @@ def test_clis_refuse_to_run_without_a_card(tmp_path, files, clip):
 
 
 def test_cli_options_that_are_not_ported_raise(files, shared):
-    """--fan_weights (A.9), --n_devices other than 1 (A.8), --fused_engine
-    with RetinaFace, and -ov without cv2 raise with the reason."""
-    args = cli_args(t_image.build_arg_parser(), files,
-                    inference_method="seq_fd_vs_aln", fan_weights="fan.npz")
-    with pytest.raises(NotImplementedError, match="A.9"):
-        t_image.recognize_image(args, shared[0],
-                                np.zeros((64, 64, 3), np.uint8))
+    """--n_devices other than 1 (A.8), --fused_engine with RetinaFace, and
+    -ov without cv2 raise with the reason (--fan_weights is ported: its
+    test is in tests/test_torch_dataset_tools.py)."""
     with pytest.raises(SystemExit, match="A.8"):
         t_video.build_fused_engine(shared[0], (112, 112), n_devices=2)
     retina = (shared[0][0], TR.RetinaFace(device="cpu"), *shared[0][2:])

@@ -439,11 +439,57 @@ def test_detect_and_align_matches_jax(frames, detectors, det, path):
     assert len(one_faces) == 1 and len(one_faces[0]) == len(got_faces[0])
 
 
+class _StubLandmarker:
+    """An ``fa_model`` that records its calls and returns one fixed 68-point
+    layout per face box, upright (sane) or upside down."""
+
+    device = torch.device("cpu")
+
+    def __init__(self, upright):
+        self.upright, self.calls = upright, []
+
+    def landmarks_for_boxes(self, images_u8, boxes):
+        self.calls.append((np.array(images_u8), np.array(boxes)))
+        unit = np.full((68, 2), 0.5, np.float32)
+        unit[36:42], unit[42:48] = (0.3, 0.35), (0.7, 0.35)
+        unit[33], unit[48], unit[54] = (0.5, 0.55), (0.35, 0.75), (0.65, 0.75)
+        if not self.upright:
+            unit[:, 1] = 1.0 - unit[:, 1]
+        wh = boxes[:, None, 2:4] - boxes[:, None, 0:2]
+        return (boxes[:, None, 0:2] + unit[None] * wh).astype(np.float32)
+
+
 def test_fan_branch_is_not_ported(frames, detectors):
-    with pytest.raises(NotImplementedError, match="A.9"):
-        TRec.sequential_detect_and_align(
-            frames, detectors["MTCNN"][1], TEMPLATE, (112, 112),
-            fa_model=object())
+    """The FAN branch (``fa_model``; the test keeps the name it had before
+    the branch was ported): one ``landmarks_for_boxes`` batch a call over
+    every gated face crop, each crop zero-padded into the batch with its
+    own box [0, 0, w, h]; the 68 points reduced to 5 and gated (upside-down
+    points keep no face); the faces aligned to those points. The port
+    against JAX on FAN weights: tests/test_torch_dataset_tools.py."""
+    args = (frames, detectors["MTCNN"][1], TEMPLATE, (112, 112),
+            {"min_dim": 40, "box_ratio": 2.0})
+    want_faces, want_boxes = TRec.sequential_detect_and_align(*args)
+    n_faces = sum(len(f) for f in want_faces)
+    upright = _StubLandmarker(upright=True)
+    timer = TTr.StageTimer()
+    faces, boxes = TRec.sequential_detect_and_align(*args, fa_model=upright,
+                                                    timer=timer)
+    assert len(upright.calls) == 1 and timer.counts["fan"] == 1
+    images, crop_boxes = upright.calls[0]
+    assert len(images) == len(crop_boxes) == n_faces >= 6
+    for img, box in zip(images, crop_boxes):
+        w, h = int(box[2]), int(box[3])
+        assert box[0] == box[1] == 0 and img[:h, :w].any()
+        assert not img[h:].any() and not img[:, w:].any()
+    assert [len(f) for f in faces] == [len(f) for f in want_faces]
+    _same_boxes(boxes, want_boxes, 0.0)
+    # the faces were warped onto the stub's points, not the detector's
+    assert any(_max_level_diff(g, w) > 1 for gf, wf in zip(faces, want_faces)
+               for g, w in zip(gf, wf))
+    flipped = _StubLandmarker(upright=False)
+    faces, boxes = TRec.sequential_detect_and_align(*args, fa_model=flipped)
+    assert len(flipped.calls) == 1
+    assert [len(f) for f in faces] == [0, 0] and boxes == [[], []]
 
 
 # ---------------------------------------------------------------------------

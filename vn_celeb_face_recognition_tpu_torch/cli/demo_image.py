@@ -10,7 +10,10 @@ image. The models run on ``-dv`` (``cuda`` unless ``cpu`` is passed).
   python -m vn_celeb_face_recognition_tpu_torch.cli.demo_image -i face.png \\
       -l2n meta_data/face_recognition/label2name.txt -m model_best.pth
 
-Drawing and writing the picture need cv2; ``recognize_image`` does not.
+With ``--fan_weights`` (a torch-keyed 2DFAN4 ``.npz``) the sequential
+method takes its landmarks from the FAN 68-point network, in
+``--fan_dtype``. Drawing and writing the picture need cv2;
+``recognize_image`` does not.
 """
 
 import argparse
@@ -76,12 +79,21 @@ def build_arg_parser():
                    type=str)
     p.add_argument("--topk_emotions", default=6, type=int)
     p.add_argument("--fan_dtype", default=None, type=str,
-                   help="FAN compute dtype (the FAN branch is not ported "
-                        "yet)")
+                   help="FAN compute dtype, e.g. bfloat16")
     p.add_argument("--fan_weights", default=None, type=str,
-                   help="the FAN 68-point landmark branch of seq_fd_vs_aln; "
-                        "not ported yet, raises NotImplementedError")
+                   help="a torch-keyed 2DFAN4 .npz: seq_fd_vs_aln takes its "
+                        "landmarks from the FAN 68-point network")
     return p
+
+
+def build_fan_model(args):
+    """The FAN landmarker of ``--fan_weights`` (compute dtype
+    ``--fan_dtype``) on ``args.device``, or None without the flag."""
+    if not getattr(args, "fan_weights", None):
+        return None
+    return model_md.FANLandmarker(weights_path=args.fan_weights,
+                                  dtype=getattr(args, "fan_dtype", None),
+                                  device=args.device)
 
 
 def _reconcile_encoder_args(args, enc_args):
@@ -145,11 +157,13 @@ def setup_models(args):
         emt_model, idx2etag
 
 
-def recognize_image(args, models, rgb_image):
+def recognize_image(args, models, rgb_image, fa_model=None):
     """One RGB uint8 image through detect -> align -> embed -> classify
-    (and the emotion head with ``--recog_emotion``). Returns (names, boxes,
-    emotion tags, emotion probabilities); the last two are None without
-    ``--recog_emotion``."""
+    (and the emotion head with ``--recog_emotion``). With
+    ``seq_fd_vs_aln`` the landmarks come from ``fa_model``, or from a FAN
+    landmarker built for ``--fan_weights`` when none is given. Returns
+    (names, boxes, emotion tags, emotion probabilities); the last two are
+    None without ``--recog_emotion``."""
     (label2name, detection_md, emb_model, classify_model, emt_model,
      idx2etag) = models
     target_fs = (args.target_face_size, args.target_face_size)
@@ -157,10 +171,6 @@ def recognize_image(args, models, rgb_image):
     rgb_images = [rgb_image]
 
     if args.inference_method == "seq_fd_vs_aln":
-        if getattr(args, "fan_weights", None):
-            raise NotImplementedError(
-                "--fan_weights: the FAN landmark branch is not ported yet "
-                "(ROADMAP.md, A.9)")
         box_requirements = {
             "min_dim": args.min_dim_box,
             "box_ratio": args.box_ratio,
@@ -168,6 +178,7 @@ def recognize_image(args, models, rgb_image):
         bth_alg_faces, bth_chosen_boxes = sequential_detect_and_align(
             rgb_images, detection_md, center_point, target_fs,
             box_requirements, True,
+            fa_model=fa_model or build_fan_model(args),
         )
     elif args.inference_method == "par_fd_vs_aln":
         bth_alg_faces, bth_chosen_boxes = parallel_detect_and_align(

@@ -14,6 +14,7 @@ import os
 
 import torch
 
+from .fan import FAN, FANLandmarker, build_fan
 from .inception_resnet_v1 import InceptionResnetV1
 from .iresnet import _DEPTH_LAYERS, IResNet, iresnet34, iresnet50, iresnet100
 from .layers import coerce_dtype, read_state_dict, seeded_init_
@@ -222,6 +223,8 @@ def build_detector(name, **args):
 
 
 __all__ = [
+    "FAN",
+    "FANLandmarker",
     "IResNet",
     "InceptionResnetV1",
     "iresnet34",
@@ -235,5 +238,6 @@ __all__ = [
     "RetinaFaceNet",
     "build_model",
     "build_detector",
+    "build_fan",
     "local_weights",
 ]

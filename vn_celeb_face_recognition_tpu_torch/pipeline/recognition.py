@@ -21,12 +21,14 @@ with its signatures and numpy return types:
     one, which this module does not import) or a plain ``{label: name}``
     dict.
 
-The library's stages (detect, align, embed, classify, emotion) are labelled
-for ``torch.profiler`` and NVTX, and timed by a ``utils.tracing.StageTimer``
-when one is passed as ``timer``.
+The library's stages (detect, fan, align, embed, classify, emotion) are
+labelled for ``torch.profiler`` and NVTX, and timed by a
+``utils.tracing.StageTimer`` when one is passed as ``timer``.
 
-The detector's own 5 points give the landmarks; the FAN landmark branch
-(``fa_model``) is not ported yet.
+The landmarks are the detector's own 5 points or, in
+``sequential_detect_and_align`` with ``fa_model`` (a
+``models.fan.FANLandmarker``), FAN's 68 points reduced to 5, every face
+crop of the call in one FAN batch.
 """
 
 import numpy as np
@@ -38,7 +40,7 @@ from ..models.layers import read_state_dict
 from ..training.checkpoint import load_checkpoint, load_state_dict_from_jax
 from ..utils.device import select_device
 from ..utils.tracing import timed_stage
-from .align import align_crops
+from .align import align_crops, pad_windows
 
 
 class _Apply(nn.Module):
@@ -384,32 +386,54 @@ def _align_all(crops, landmarks, per_image, center_point, target_fs,
     return out
 
 
+def _fan_landmarks(fa_model, faces, timer):
+    """FAN's landmarks of every face crop in one batch, each crop its own
+    box (the zero padding of the batch reads as the crop's own zero
+    border), reduced to 5 points: [(dst [5, 2], sane)]."""
+    from ..models import fan
+
+    if not faces:
+        return []
+    boxes = np.asarray([[0.0, 0.0, float(f.shape[1]), float(f.shape[0])]
+                        for f in faces], np.float32)
+    with timed_stage(timer, "fan", fa_model.device):
+        points = fa_model.landmarks_for_boxes(pad_windows(faces), boxes)
+    return [fan.reduce_to_5_points(p) for p in points]
+
+
 def sequential_detect_and_align(rgb_images, detection_md, center_point,
                                 target_fs, box_requirements=None,
                                 log=False, fa_model=None, timer=None):
     """Detect boxes and landmarks, gate boxes, sanity-check landmarks,
     warp. Returns (per-image aligned-face lists, per-image chosen boxes).
-    The landmarks are the detector's own 5 points; ``fa_model`` (the FAN
-    landmark branch) is not ported yet and raises."""
-    if fa_model is not None:
-        raise NotImplementedError(
-            "the FAN landmark branch (fa_model) is not ported yet "
-            "(ROADMAP.md, A.9)")
+    The landmarks are the detector's own 5 points, or with ``fa_model`` (a
+    ``models.fan.FANLandmarker``) FAN's 68 points of each gated face crop
+    reduced to 5 (``models.fan.reduce_to_5_points``), one FAN batch for
+    the call."""
     rgb_images, bth_boxes, bth_landmarks = _detect(rgb_images, detection_md,
                                                    timer)
+    gated = []  # per image: (face crops, their indices into the boxes)
+    for idx, boxes in enumerate(bth_boxes):
+        gated.append(get_face_from_boxes(np.asarray(rgb_images[idx]), boxes,
+                                         box_requirements)
+                     if len(boxes) > 0 else None)
+    if fa_model is not None:
+        fan_lms = iter(_fan_landmarks(
+            fa_model, [f for g in gated if g for f in g[0]], timer))
     crops, lms, per_image, bth_chosen = [], [], [], []
     for idx, (boxes, landmarks) in enumerate(zip(bth_boxes, bth_landmarks)):
         chosen_boxes = []
-        rgb_image = np.asarray(rgb_images[idx])
-        if len(boxes) > 0:
-            list_face, face_idx = get_face_from_boxes(
-                rgb_image, boxes, box_requirements
-            )
+        if gated[idx] is not None:
+            list_face, face_idx = gated[idx]
             for j, face in enumerate(list_face):
-                lm = move_landmark_to_box(
-                    boxes[face_idx[j]], landmarks[face_idx[j]]
-                )
-                if not landmarks_geometrically_sane(lm):
+                if fa_model is not None:
+                    lm, sane = next(fan_lms)
+                else:
+                    lm = move_landmark_to_box(
+                        boxes[face_idx[j]], landmarks[face_idx[j]]
+                    )
+                    sane = landmarks_geometrically_sane(lm)
+                if not sane:
                     if log:
                         print("Landmarks failed the sanity check !")
                     continue
