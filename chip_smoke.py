@@ -151,6 +151,30 @@ Phases, one line of output each (a failed phase exits non-zero):
       means, launches exact per detect call and aligned image; and
       dataset-tools-card-vs-cpu, the same with -dv cpu: equal files,
       manifests and crops, aligned faces within 1 level.
+  26. the readers of JPEG and video as a user's files reach them: readers,
+      which reader use_native=None resolves to on this machine and why,
+      an MJPG .avi and JPEGs written by cv2 read back; readers-find-
+      embedding, find_embedding.main on the 20 face crops as JPEGs;
+      readers-cli, demo_image.recognize_image on a JPEG frame,
+      demo_video.process_video --fused_engine (MTCNN f32, 2 chunks of 64)
+      through frame_chunks on the .avi, launches held to CLI path (a)'s
+      per-run counts and tracker.csv equal to a run on cv2's own frames
+      of the file, K5's f32 grid timed at that run's crops beside its
+      bound, and celeb_statistic.main on the file.
+  27. the SE-IR encoder: se-ir, resnet101 at full depth on 64 faces of 112
+      px in f32 (TF32 off), ms a batch, faces/s and TFLOP/s beside the
+      bound, card vs CPU cosine >= 0.999 on 2 faces; arcmargin,
+      ArcMarginModel at 1,001 classes on those embeddings, card vs CPU
+      within 1e-4 x margin_s, both margin rules; se-ir-train,
+      cfg/train_cfg_aug_emb_classify.json through cli.train.main with
+      chosen_idx_enc 1 and encoder_img_size 112, one K1 launch a step,
+      ms a step, images/s, the busy share.
+  28. RetinaFace cfg_re50 (seeded, offset heads shrunk, keep_top_k 4)
+      through the recognition library: re50, parallel_detect_and_align and
+      recognize_celeb (iresnet100 + MLP 1020) on 4 frames of 640 px, f32,
+      K3 and K1 once a call, median host ms a call; re50-net, the net
+      alone with TF32 off and on; re50-card-vs-cpu, the seeded net's head
+      outputs (offsets not shrunk) on 2 frames within rtol 1e-3 atol 1e-3.
 
 Kernel phases check bf16 at the lines' shapes and f32 on a slice of
 them; exact kernels (K3, K4) are held with torch.equal. Every kernel is
@@ -1781,9 +1805,10 @@ def phase_recognition(torch, F, kernels, K1, dev, card, results):
 
 
 def cli_io_probe():
-    """Whether this machine has g++, the IO runtime's headers and cv2
-    (reported; nothing below depends on them: phase 22 decodes only PNG,
-    in Python, and draws nothing)."""
+    """Whether this machine has g++, the IO runtime's headers and cv2, and
+    cv2's video backends (reported; nothing below depends on them: phase
+    22 decodes only PNG, in Python, and draws nothing; phase 26 reads
+    JPEG and video by the reader this machine resolves to)."""
     import shutil
 
     gxx = shutil.which("g++")
@@ -1798,40 +1823,52 @@ def cli_io_probe():
     cv2 = subprocess.run([sys.executable, "-c", "import cv2"],
                          capture_output=True, timeout=120).returncode == 0
     parts.append(f"import cv2 {'yes' if cv2 else 'no'}")
+    parts.append(cv2_video_probe())
     phase("cli-io", "; ".join(parts))
 
 
-def cli_find_embedding(torch, dev, work):
-    """find_embedding.main on the repo's 20 face PNGs, -bz 8 -w none: one
+def cli_find_embedding(torch, dev, work, jpeg=False):
+    """find_embedding.main on the repo's 20 face crops (the PNGs, or with
+    ``jpeg`` the same crops written as JPEGs by cv2), -bz 8 -w none: one
     .npz per file, named after it, each at cosine >= 0.999 to a lone
-    Encoder call on that file, resized as the CLI resizes it."""
+    Encoder call on that file's read_image, resized as the CLI resizes
+    it."""
     import shutil
 
     from vn_celeb_face_recognition_tpu_torch.cli import find_embedding as FE
     from vn_celeb_face_recognition_tpu_torch.utils.frames import (
         face_files,
+        read_image,
         read_png,
         resize_bilinear,
     )
 
-    src, out = os.path.join(work, "faces"), os.path.join(work, "emb")
+    src = os.path.join(work, "faces_jpg" if jpeg else "faces")
+    out = src + "_emb"
     os.makedirs(src)
-    files = face_files()
-    for f in files:
-        shutil.copy(f, src)
+    for f in face_files():
+        if jpeg:
+            import cv2
+
+            stem = os.path.basename(f).split(".")[0]
+            cv2.imwrite(os.path.join(src, stem + ".jpg"),
+                        np.ascontiguousarray(read_png(f)[..., ::-1]))
+        else:
+            shutil.copy(f, src)
+    names = sorted(os.listdir(src))
+    files = [os.path.join(src, n) for n in names]
     t0 = time.perf_counter()
     n = FE.main(["-d", src, "-o", out, "-bz", "8", "-w", "none"])
     secs = time.perf_counter() - t0
-    names = [os.path.basename(f) for f in files]
     if n != len(files) or sorted(os.listdir(out)) != sorted(
             f.split(".")[0] + ".npz" for f in names):
         fail(f"cli find_embedding wrote {sorted(os.listdir(out))} for "
              f"{len(files)} files")
     enc = FE.build_encoder("InceptionResnetV1", "none", dev)
-    first = read_png(files[0])
+    first = read_image(files[0])
     cos_min, resized = 1.0, 0
     for f, name in zip(files, names):
-        img = read_png(f)
+        img = read_image(f)
         if img.shape != first.shape:
             img = resize_bilinear(img, (first.shape[1], first.shape[0]))
             resized += 1
@@ -1840,10 +1877,12 @@ def cli_find_embedding(torch, dev, work):
             got = z["arr_0"]
         cos_min = min(cos_min, float(got @ want / (np.linalg.norm(got)
                                                    * np.linalg.norm(want))))
-    phase("cli-find-embedding", f"find_embedding.main -bz 8 -w none on the "
-          f"card: {n} .npz files, each named after its PNG ({resized} "
-          f"resized to {first.shape[1]}x{first.shape[0]}); min cosine "
-          f"{cos_min:.6f} to a lone Encoder call on each file (>= 0.999); "
+    kind = "JPEG" if jpeg else "PNG"
+    phase("readers-find-embedding" if jpeg else "cli-find-embedding",
+          f"find_embedding.main -bz 8 -w none on the card: {n} .npz files, "
+          f"each named after its {kind} ({resized} resized to "
+          f"{first.shape[1]}x{first.shape[0]}); min cosine {cos_min:.6f} "
+          f"to a lone Encoder call on each file's read_image (>= 0.999); "
           f"{secs * 1e3:.1f} ms (host clock, encoder build included)")
     if cos_min < 0.999:
         fail("cli find_embedding: an embedding differs from its file's")
@@ -3658,6 +3697,640 @@ def dataset_tools(torch, kernels, dev, card, results, work, npz):
           f"1); {fan_part}; CPU walls "
           + ", ".join(f"{t} {s:.2f} s" for t, s in cpu_s.items()))
 
+# phase 26 (readers): the CLIs' readers on files written here with cv2, an
+# MJPG .avi of 2 x BATCH frames at READ_FPS (OpenCV's own MJPG backend
+# writes and reads it without FFmpeg), the repo's face PNGs as JPEGs and
+# one frame as a JPEG
+READ_FPS = 25.0
+# phase 27 (se-ir): resnet101 at full depth on SE_BATCH faces of 112 px,
+# timed over SE_RUNS forwards; the aug trainer with it for SE_EPOCHS
+# epochs; ArcMargin at PROD_CLASSES + 1 classes (the shipped config's
+# MLP width)
+SE_BATCH, SE_RUNS, SE_EPOCHS, ARC_CLASSES = 64, 10, 1, 1001
+
+
+@contextlib.contextmanager
+def scratch(prefix):
+    """A temp dir under the gitignored build/, removed afterwards; the
+    working directory is the repo root, as the CLIs' flags name files
+    from it."""
+    import shutil
+    import tempfile
+
+    os.chdir(HERE)
+    os.makedirs(os.path.join(HERE, "build"), exist_ok=True)
+    work = tempfile.mkdtemp(prefix=prefix, dir=os.path.join(HERE, "build"))
+    try:
+        yield work
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+
+def cv2_frames(cv2, path):
+    """Every frame of a video file as cv2.VideoCapture decodes it, turned
+    to RGB, and the fps it reports (25 when it reports 0)."""
+    cap = cv2.VideoCapture(path)
+    frames = []
+    try:
+        fps = cap.get(cv2.CAP_PROP_FPS) or 25.0
+        while True:
+            ok, frame = cap.read()
+            if not ok:
+                break
+            frames.append(np.ascontiguousarray(frame[..., ::-1]))
+    finally:
+        cap.release()
+    return frames, fps
+
+
+def cv2_video_probe():
+    """cv2's video backends and whether an mp4v .mp4 that cv2.VideoWriter
+    writes reads back, for the cli-io line."""
+    import tempfile
+
+    try:
+        import cv2
+    except ImportError:
+        return "cv2 video backends: no cv2"
+    registry = cv2.videoio_registry
+    names = [registry.getBackendName(b) for b in registry.getBackends()]
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "probe.mp4")
+        writer = cv2.VideoWriter(path, cv2.VideoWriter_fourcc(*"mp4v"),
+                                 READ_FPS, (64, 64))
+        opened = writer.isOpened()
+        for i in range(4):
+            writer.write(np.full((64, 64, 3), 40 * i, np.uint8))
+        writer.release()
+        back = len(cv2_frames(cv2, path)[0]) if opened else 0
+    return (f"cv2 {cv2.__version__} video backends {names}; mp4v .mp4 round"
+            f" trip: writer {'opened' if opened else 'not opened'}, {back} "
+            "of 4 frames read back")
+
+
+def phase_readers(torch, kernels, dev, card, results):
+    """26. The readers of JPEG and video as a user's files reach them on
+    this machine: which reader ``use_native=None`` resolves to and why
+    (``native.loader.available``); find_embedding.main on the repo's 20
+    face crops written as JPEGs (-bz 8 -w none; cosine >= 0.999 to a lone
+    Encoder call on each file's read_image); demo_image.recognize_image on
+    a 640x640 frame read from a JPEG (MTCNN par_fd_vs_aln, launches exact
+    a call); demo_video.process_video --fused_engine (MTCNN f32,
+    InceptionResnetV1, MLP 1001, emotion, 2 chunks of 64) through
+    frame_chunks on an MJPG .avi, launches held to CLI path (a)'s exact
+    per-run counts, and its tracker.csv equal to a run of the same CLI on
+    chunks of the frames cv2.VideoCapture decodes from that file here;
+    celeb_statistic.main on the same file (-fidx 1 6 11 16, dynamic
+    intervals)."""
+    with scratch("readers_smoke_") as work:
+        readers_paths(torch, kernels, dev, card, results, work)
+
+
+def readers_paths(torch, kernels, dev, card, results, work):
+    """Phase 26's drives and checks, writing under ``work``."""
+    import cv2
+
+    from vn_celeb_face_recognition_tpu_torch.cli import celeb_statistic as CS
+    from vn_celeb_face_recognition_tpu_torch.cli import demo_image as DI
+    from vn_celeb_face_recognition_tpu_torch.cli import demo_video as DV
+    from vn_celeb_face_recognition_tpu_torch.models import mtcnn as MT
+    from vn_celeb_face_recognition_tpu_torch.native import loader
+    from vn_celeb_face_recognition_tpu_torch.utils.frames import (
+        build_frames,
+        read_image,
+    )
+
+    choice = []
+    for name, what in (("image_io", "JPEG"), ("video_io", "video")):
+        choice.append(f"{what}: " + (
+            "the IO runtime" if loader.available(name) else
+            f"cv2, as the IO runtime is not available "
+            f"({loader.unavailable_reason(name)})"))
+    frames = build_frames(2 * BATCH, SIZE, FACES_PER_FRAME)
+    avi = os.path.join(work, "clip.avi")
+    writer = cv2.VideoWriter(avi, cv2.VideoWriter_fourcc(*"MJPG"), READ_FPS,
+                             (SIZE, SIZE))
+    if not writer.isOpened():
+        fail("readers: cv2.VideoWriter cannot write an MJPG .avi here")
+    for f in frames:
+        writer.write(np.ascontiguousarray(f[..., ::-1]))
+    writer.release()
+    decoded, fps = cv2_frames(cv2, avi)
+    jpg = os.path.join(work, "frame.jpg")
+    cv2.imwrite(jpg, np.ascontiguousarray(frames[0][..., ::-1]))
+    img = read_image(jpg)
+    ref = cv2.imread(jpg, cv2.IMREAD_COLOR)[..., ::-1]
+    img_diff = int(np.abs(img.astype(np.int16) - ref).max())
+    phase("readers", f"use_native=None resolves to: {'; '.join(choice)}; "
+          f"an MJPG .avi of {len(frames)} {SIZE}x{SIZE} frames at "
+          f"{READ_FPS} fps written by cv2.VideoWriter, read back by "
+          f"cv2.VideoCapture as {len(decoded)} frames at {fps} fps, max "
+          f"diff {int(np.abs(np.stack(decoded).astype(np.int16) - frames).max())}"
+          f" levels from the written frames (MJPG is lossy); a JPEG of "
+          f"frame 0 through read_image: max diff {img_diff} levels from "
+          f"cv2.imread (0 wanted)")
+    if len(decoded) != len(frames) or fps != READ_FPS or img_diff:
+        fail("readers: the file did not read back as written")
+
+    cli_find_embedding(torch, dev, work, jpeg=True)
+
+    meta = "meta_data/face_recognition"
+    flags = ["-m", "", "-l2n", f"{meta}/label2name.txt", "-nc",
+             str(REC_CLASSES), "--recog_emotion"]
+    parser = CS.build_arg_parser()
+    with contextlib.redirect_stdout(io.StringIO()):
+        models = DI.setup_models(parser.parse_args(flags))
+    with torch.no_grad():  # logits of order 1: the top-k tags not tied
+        models[4].module.fc.weight.mul_(0.02)
+
+    args = parser.parse_args(flags + ["--inference_method",
+                                      "par_fd_vs_aln"])
+    args.recog_emotion = False
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    names, boxes, _, _ = DI.recognize_image(args, models, read_image(jpg))
+    torch.cuda.synchronize()
+    image_ms = (time.perf_counter() - t0) * 1e3
+    check_line_counts(kernels.launch_counts(), MTCNN_LINE_LAUNCHES, 1,
+                      "readers demo_image", results)
+    if len(names) != FACES_PER_FRAME:
+        fail(f"readers demo_image: {len(names)} faces in the JPEG frame")
+
+    # demo_video on the file, and on cv2's frames of it handed over
+    emotion_run = {"emotion_stem": 1,
+                   "bottleneck_chain": REC_LAUNCHES["retinaface"][
+                       "bottleneck_chain"]}
+    per_run = dict(MTCNN_LINE_LAUNCHES, **emotion_run)
+    csvs = {k: os.path.join(work, f"{k}.csv") for k in ("file", "cv2")}
+    args = parser.parse_args(flags + [
+        "--fused_engine", "--n_frames", str(BATCH), "--face_cap", "256,320",
+        "-vp", avi, "-ot", csvs["file"], "-of", os.path.join(work, "out")])
+    fs = (args.target_face_size, args.target_face_size)
+    tpl = DV.center_point_dict[str(fs)]
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    log = io.StringIO()
+    trunks = []  # (net, spec, crops) of the first chunk run's K5 calls
+
+    def recorded(orig):
+        def trunk(net, x, spec):
+            if len(trunks) < 2:
+                trunks.append((net, spec, x.clone()))
+            return orig(net, x, spec)
+        return trunk
+
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(log), patched(MT, "crop_net_trunk",
+                                                  recorded):
+        n, _ = DV.process_video(args, models, fs, tpl, 0.0, None)
+    torch.cuda.synchronize()
+    video_s = time.perf_counter() - t0
+    launches = kernels.launch_counts()
+    runs = len(frames) // BATCH  # one engine run a chunk of the file
+    if n != len(frames):
+        fail(f"readers demo_video: {n} of {len(frames)} frames")
+    check_line_counts(launches, per_run, runs, "readers demo_video",
+                      results)
+    it = iter(decoded)
+    a = copy.copy(args)
+    a.output_tracker = csvs["cv2"]
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):
+        DV.process_video(a, models, fs, tpl, 0.0, None, chunks=DV.chunk_frames(
+            lambda: next(it, None), fps, args.n_frames))
+    torch.cuda.synchronize()
+    handed_s = time.perf_counter() - t0
+    rows = {k: cli_rows(p) for k, p in csvs.items()}
+    cli_check_rows(rows["file"], list(range(1, len(frames) + 1)), fps,
+                   "readers demo_video")
+    if rows["file"] != rows["cv2"]:
+        fail("readers demo_video: tracker.csv from the file differs from the"
+             " run on cv2's frames of it")
+    fps_line = [ln for ln in log.getvalue().splitlines()
+                if ln.startswith("FPS")]
+    k5 = k5_f32_at(torch, trunks, results)
+
+    stat_csv = os.path.join(work, "stat.csv")
+    stat_json = os.path.join(work, "stat.json")
+    fidx = [1, 6, 11, 16]
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):
+        CS.main(flags + ["--fused_engine", "--n_frames", str(BATCH),
+                         "-vp", avi, "-ot", stat_csv, "-jst", stat_json,
+                         "-fidx", *map(str, fidx), "-nvi", "2", "-tap", "1",
+                         "-of", os.path.join(work, "stat_out")])
+    stat_s = time.perf_counter() - t0
+    counts = [c for c in range(1, len(frames) + 1)
+              if any(c % fps == i for i in fidx)]
+    cli_check_rows(cli_rows(stat_csv), counts, fps, "readers celeb_statistic")
+    with open(stat_json) as fp:
+        intervals = sorted(json.load(fp))
+    phase("readers-cli", f"on the card ({card}), files read by the CLIs' "
+          f"readers: demo_image.recognize_image on the JPEG frame (MTCNN "
+          f"par_fd_vs_aln): {names}, {image_ms:.1f} ms (host clock, the "
+          f"call), launches exact; demo_video.process_video "
+          f"--fused_engine (MTCNN f32, InceptionResnetV1, MLP 1001, emotion) "
+          f"through frame_chunks on the .avi: {len(rows['file'])} rows in "
+          f"{runs} engine runs, {video_s:.2f} s (host clock, the first "
+          f"f32 engine run of the process, decode included; "
+          f"{fps_line[0] if fps_line else 'no FPS line'}; then {handed_s:.2f}"
+          f" s on the decoded frames handed over), "
+          f"launches {({k: v for k, v in launches.items() if v})}"
+          f" held to CLI path (a)'s per-run counts, tracker.csv equal to the "
+          f"run on cv2.VideoCapture's frames of the file; {k5}; "
+          f"celeb_statistic.main"
+          f" -fidx {fidx} on the .avi: {len(counts)} rows, tracker.json "
+          f"intervals {intervals}, {stat_s:.2f} s (models built in it)")
+
+
+def k5_f32_at(torch, trunks, results):
+    """K5's f32 grid at the crops of one MTCNN chunk run of the CLI path
+    (``trunks``: its RNet and ONet calls, (net, spec, crops)): each net's
+    call time (CUDA events) and profiler device time on those crops, and
+    on seeded crops of the same count, beside its bound (crops read once
+    and features written once, 4 bytes a value; conv1 + conv2
+    multiply-adds at the f32 peak). The row keeps the call time: in a
+    long process the profiler has summed this grid below its bound
+    (PERF.md §7), and a call time below the bound fails. Returns the
+    line's text."""
+    from vn_celeb_face_recognition_tpu_torch.ops import crops_net as K5
+
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    parts, total, total_bound = [], 0.0, 0.0
+    for net, spec, crops in trunks:
+        seeded = (torch.rand(crops.shape, generator=gen, device="cuda")
+                  - 0.5) * 2.0
+        out = K5.crop_net_trunk(net, crops, spec)
+        if crops.dtype != torch.float32 or out.dtype != torch.float32:
+            fail(f"K5 at the CLI path: {spec.name} runs in {crops.dtype}")
+        times = {}
+        for what, x in (("the path's crops", crops), ("seeded crops",
+                                                      seeded)):
+            times[what] = (
+                median_ms(torch, lambda x=x: K5.crop_net_trunk(net, x,
+                                                               spec)),
+                device_ms(torch, lambda x=x: K5.crop_net_trunk(net, x, spec),
+                          KERNEL_GRIDS["crop_net_trunk"]))
+        ms = times["the path's crops"][0]
+        nbytes = (crops.numel() + out.numel()) * 4
+        flops = crops.shape[0] * trunk_flops(spec)
+        b_ms, b_by = bound(nbytes, flops, PEAK_F32)
+        if ms < b_ms:
+            fail(f"K5 f32 at the CLI path: {spec.name} call {ms:.3f} ms is "
+                 f"under its bound {b_ms:.3f} ms")
+        total, total_bound = total + ms, total_bound + b_ms
+        parts.append(f"{spec.name} {crops.shape[0]} crops: " + ", ".join(
+            f"{what} {c:.3f} ms (profiler {d:.3f} ms)"
+            for what, (c, d) in times.items())
+            + f"; bound {b_ms:.3f} ms ({b_by}; {flops / 1e9:.2f} GFLOP, "
+            f"{nbytes / 1e6:.1f} MB)")
+    results["crop_net_trunk"]["f32_cli"] = dict(ms=total,
+                                                bound_ms=total_bound)
+    return (f"K5's f32 grid at this path's crops of a chunk run (call: CUDA "
+            f"events around the wrapper call, median of 20; profiler: "
+            f"device time, mean per call): " + "; ".join(parts)
+            + f"; both {total:.3f} ms a call on the path's crops against a "
+            f"bound of {total_bound:.3f} ms at the f32 peak")
+
+
+def face_batch(torch, n, size):
+    """``n`` standardised faces of ``size`` px, NCHW f32: the repo's face
+    crops resized, in turn."""
+    from vn_celeb_face_recognition_tpu_torch.utils.frames import (
+        face_files,
+        read_png,
+        resize_bilinear,
+    )
+
+    files = face_files()
+    faces = np.stack([resize_bilinear(read_png(files[i % len(files)]),
+                                      (size, size)) for i in range(n)])
+    x = (faces.astype(np.float32) - 127.5) / 128.0
+    return torch.from_numpy(x).permute(0, 3, 1, 2).contiguous()
+
+
+def se_flops(torch, size):
+    """FLOP of one face through resnet101 at ``size`` px (two a
+    multiply-add), by torch.utils.flop_counter on the meta device."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from vn_celeb_face_recognition_tpu_torch.models import ResNetSE
+
+    with torch.device("meta"):
+        net = ResNetSE().eval()
+        x = torch.zeros((1, 3, size, size))
+    with torch.no_grad(), FlopCounterMode(display=False) as counter:
+        net(x)
+    return counter.get_total_flops()
+
+
+def phase_se_ir(torch, kernels, K1, dev, card, results):
+    """27. The SE-IR encoder and ArcMargin. ``se-ir``: build_model
+    ("resnet101") with the shipped aug config's arguments (cp_path
+    insight-face-v3.pt is absent: seeded), full depth (3, 4, 23, 3), on
+    SE_BATCH faces of 112 px in f32 (TF32 off): median ms a batch (CUDA
+    events), faces/s, TFLOP/s at the counted FLOP beside the f32 bound;
+    the card against the CPU on 2 faces (cosine >= 0.999).
+    ``se-ir-train``: cli.train.main on a copy of
+    cfg/train_cfg_aug_emb_classify.json with chosen_idx_enc 1 (resnet101,
+    frozen) and encoder_img_size 112 on phase 23's seeded 112 px faces,
+    epochs cut to SE_EPOCHS: exactly one K1 launch a step, median ms a
+    step, images/s over the median epoch wall, the busy share of one
+    profiled epoch, the encoder unchanged. ``arcmargin``: ArcMarginModel
+    at ARC_CLASSES classes on SE_BATCH embeddings, card against CPU within
+    1e-4 x margin_s, both margin rules."""
+    from vn_celeb_face_recognition_tpu_torch.models import (
+        ArcMarginModel,
+        build_model,
+    )
+
+    enc_args = read_json("cfg", "train_cfg_aug_emb_classify.json")[
+        "trainer"]["encoders"][1]
+    enc = build_model(enc_args["name"], **enc_args["args"]).to(dev)
+    x = face_batch(torch, SE_BATCH, 112).to(dev)
+    with torch.no_grad():
+        emb = enc(x)
+        ms = median_ms(torch, lambda: enc(x), runs=SE_RUNS, warmup=2)
+    flops = se_flops(torch, 112) * SE_BATCH
+    bound_ms = flops / PEAK_F32 * 1e3
+    enc_cpu = copy.deepcopy(enc).cpu()
+    with torch.no_grad():
+        e_cpu = enc_cpu(x[:2].cpu())
+    cos = float(torch.nn.functional.cosine_similarity(
+        emb[:2].cpu(), e_cpu, dim=-1).min())
+    norms = emb.norm(dim=-1)
+    phase("se-ir", f"resnet101 (SE-IR, {enc_args['args']}; no file at "
+          f"cp_path: seeded), layers (3, 4, 23, 3), fc {enc.fc.in_features}"
+          f" -> 512, on {SE_BATCH} faces of 112 px, f32, TF32 "
+          f"{'on' if torch.backends.cudnn.allow_tf32 else 'off'}: median "
+          f"{ms:.2f} ms a batch (CUDA events, {SE_RUNS} runs), "
+          f"{SE_BATCH / ms * 1e3:.1f} faces/s, {flops / 1e9:.1f} GFLOP a "
+          f"batch = {flops / ms / 1e9:.1f} TFLOP/s, f32 bound "
+          f"{bound_ms:.2f} ms (operations, {PEAK_F32 / 1e12:.0f} TFLOP/s); "
+          f"embedding norms {float(norms.min()):.6f}-"
+          f"{float(norms.max()):.6f}; card vs CPU on 2 faces: min cosine "
+          f"{cos:.6f} (>= 0.999) ({card})")
+    if cos < 0.999 or not bool(torch.isfinite(emb).all()):
+        fail("se-ir: card vs CPU outside tolerance")
+
+    # ArcMargin on these embeddings: both margin rules, card vs CPU
+    gen = torch.Generator().manual_seed(6)
+    labels = torch.randint(0, ARC_CLASSES, (SE_BATCH,), generator=gen)
+    parts = []
+    for easy in (False, True):
+        arc = ArcMarginModel(ARC_CLASSES, easy_margin=easy)
+        with torch.no_grad():
+            want = arc(emb.cpu(), labels)
+            got = arc.to(dev)(emb, labels.to(dev)).cpu()
+        err = float((got - want).abs().max())
+        parts.append(f"easy_margin={easy}: max abs diff {err:.2e}")
+        if err > 1e-4 * arc.margin_s or not bool(torch.isfinite(got).all()):
+            fail(f"arcmargin card vs CPU: {parts[-1]} (atol "
+                 f"{1e-4 * arc.margin_s:.1e})")
+    phase("arcmargin", f"ArcMarginModel({ARC_CLASSES}, 512, m 0.5, s 64) on "
+          f"the {SE_BATCH} resnet101 embeddings, card vs CPU f32: "
+          + "; ".join(parts) + f" (atol 1e-4 x margin_s) ({card})")
+    del enc, enc_cpu
+    torch.cuda.empty_cache()
+
+    with scratch("se_ir_smoke_") as work:
+        se_ir_trainer(torch, kernels, dev, card, results, work)
+
+
+def se_ir_trainer(torch, kernels, dev, card, results, work):
+    """Phase 27's ``se-ir-train`` line."""
+    import logging
+
+    from vn_celeb_face_recognition_tpu_torch.cli import train as cli_train
+    from vn_celeb_face_recognition_tpu_torch.training import trainer as TR
+
+    img_dir = face_dataset(work)
+    cfg = read_json("cfg", "train_cfg_aug_emb_classify.json")
+    for split, manifest in (("train_dataset", "train.json"),
+                            ("val_dataset", "val.json")):
+        cfg[split]["args"] = {"data_dir": img_dir,
+                              "label_file": os.path.join(work, manifest)}
+    cfg["transforms"]["encoder_img_size"] = 112
+    cfg["trainer"].update(chosen_idx_enc=1, epochs=SE_EPOCHS,
+                          save_dir=os.path.join(work, "saved"))
+    path = write_config(cfg, work, "train_se.json")
+    log = open(os.path.join(work, "trainer.log"), "w")
+    try:
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        with train_probes(torch, TR) as rec, contextlib.redirect_stdout(log):
+            trainer = cli_train.main(["-c", path])
+        counts = kernels.launch_counts()
+        steps = len(trainer.train_loader) * SE_EPOCHS
+        check_line_counts(counts, {"similarity_warp": 1}, steps,
+                          "se-ir train", results)
+        ms = step_ms(rec)
+        losses = [lg["neg_log_llhood"] for _, _, lg in rec["epochs"]]
+        if len(ms) != steps or not all(np.isfinite(losses)):
+            fail(f"se-ir train: {len(ms)} steps, losses {losses}")
+        enc = trainer.encoder
+        snapshot = {k: v.clone() for k, v in enc.state_dict().items()}
+        walls = [s for _, s, _ in rec["epochs"]]
+        with train_probes(torch, TR) as rec2, \
+                contextlib.redirect_stdout(log):
+            trainer._train_epoch(SE_EPOCHS + 1)
+        walls += [s for _, s, _ in rec2["epochs"]]
+        ms += step_ms(rec2)
+        with contextlib.redirect_stdout(log):
+            busy, top = busy_ms(torch, lambda: trainer._train_epoch(
+                SE_EPOCHS + 2))
+    finally:
+        root = logging.getLogger()
+        for handler in list(root.handlers):
+            root.removeHandler(handler)
+            handler.close()
+        log.close()
+    ms = sorted(ms)
+    rate, epoch_s = train_rate(len(trainer.train_loader.dataset), walls)
+    changed = [k for k, v in enc.state_dict().items()
+               if not torch.equal(v, snapshot[k])]
+    if (changed or enc.training or type(enc).__name__ != "ResNetSE"
+            or any(p.requires_grad for p in enc.parameters())):
+        fail(f"se-ir train: the encoder is not the frozen ResNetSE "
+             f"({type(enc).__name__}, changed {changed[:3]})")
+    phase("se-ir-train", f"cfg/train_cfg_aug_emb_classify.json through "
+          f"cli.train.main on the card with chosen_idx_enc 1: facenet_aug "
+          f"(K1) -> resnet101 (f32, TF32 off, seeded, frozen, fc "
+          f"{enc.fc.in_features} -> 512) -> MLP 512-2048-1001, batch "
+          f"{trainer.train_loader.batch_size}, {AUG_CLASSES} classes x "
+          f"{AUG_PER_CLASS - AUG_VAL} train 112 px faces; cut: epochs 1000 "
+          f"-> {SE_EPOCHS}, encoder_img_size 160 -> 112. {rate:.1f} train "
+          f"images/s over the median epoch wall {epoch_s:.3f} s (epochs "
+          f"{', '.join(f'{s:.3f}' for s in walls)} s); median step "
+          f"{ms[len(ms) // 2]:.2f} ms (CUDA events, {len(ms)} steps; min "
+          f"{ms[0]:.2f}, max {ms[-1]:.2f}); train loss "
+          f"{', '.join(f'{v:.4g}' for v in losses)}; one profiled epoch: "
+          f"device busy {busy:.1f} ms = {busy / 1e3 / epoch_s:.1%} of the "
+          f"median epoch wall (top: {top}); launches {counts} = one K1 a "
+          f"step; encoder unchanged ({card})")
+
+
+# phase 28 (re50): the library's RetinaFace flow with a cfg_re50 detector
+RE50_CUT = {"keep_top_k": FACES_PER_FRAME}
+RE50_OFFSET_SCALE = 0.01
+
+
+def shrink_re50_offsets(torch, net):
+    """Scale the box and landmark heads of a seeded RetinaFace net by
+    RE50_OFFSET_SCALE. With the JAX package's init (lecun-normal, identity
+    BatchNorm) a re50's offsets reach ~100, so its decoded boxes lie
+    thousands of px off the frame and the library keeps none; scaled, they
+    lie near their priors, inside the frame, as a fitted net's do."""
+    with torch.no_grad():
+        for head in (net.BboxHead, net.LandmarkHead):
+            for p in head.parameters():
+                p.mul_(RE50_OFFSET_SCALE)
+    return net
+
+
+def re50_flops(torch):
+    """FLOP of one 640 px frame through the re50 net (two a multiply-add),
+    by torch.utils.flop_counter on the meta device."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from vn_celeb_face_recognition_tpu_torch.models.retinaface import (
+        RetinaFaceNet,
+        cfg_re50,
+    )
+
+    with torch.device("meta"):
+        net = RetinaFaceNet(torch.float32, cfg_re50).eval()
+        x = torch.zeros((1, SIZE, SIZE, 3), dtype=torch.uint8)
+    with torch.no_grad(), FlopCounterMode(display=False) as counter:
+        net(x)
+    return counter.get_total_flops()
+
+
+def phase_re50(torch, kernels, dev, card, results):
+    """28. RetinaFace cfg_re50 through the recognition library: a
+    detection JSON written to a temp dir from cfg/detection/
+    retina_face.json with backbone_cfg cfg_re50 and no weights_path (the
+    net is seeded, its offsets shrunk by shrink_re50_offsets; the repo has
+    no fitted re50 weights) and keep_top_k cut 750 -> 4 (the faces each frame holds: seeded scores pass
+    vis_thres 0.6 at hundreds of anchors a frame); REC_FRAMES frames of
+    640 px through parallel_detect_and_align, then recognize_celeb
+    (iresnet100 + MLP 1020, the per-class thresholds), f32, TF32 off:
+    launches exact a call (K3 once, K1's windows form once; K6 never),
+    median host ms a call over REC_CALLS calls and stage means, the busy
+    share of one profiled call; the net alone, TF32 off and on, beside
+    its bound; the seeded net's head outputs (offsets not shrunk) on 2
+    frames, card against CPU, within rtol 1e-3 and atol 1e-3 (the JAX
+    package's re50 test's), with the count beyond atol 1e-4 shown."""
+    from vn_celeb_face_recognition_tpu_torch import pipeline
+    from vn_celeb_face_recognition_tpu_torch.models import (
+        build_detector,
+        build_model,
+    )
+    from vn_celeb_face_recognition_tpu_torch.utils.frames import build_frames
+    from vn_celeb_face_recognition_tpu_torch.utils.tracing import StageTimer
+
+    with scratch("re50_smoke_") as work:
+        cfg = read_json("cfg", "detection", "retina_face.json")
+        del cfg["weights_path"]
+        cfg.update(backbone_cfg="cfg_re50", **RE50_CUT)
+        with open(write_config(cfg, work, "retina_face_re50.json")) as fp:
+            cfg = json.load(fp)
+    t0 = time.perf_counter()
+    det = build_detector("RetinaFace", device=dev, **cfg)
+    shrink_re50_offsets(torch, det.net)
+    build_s = time.perf_counter() - t0
+    enc = pipeline.Encoder(build_model("iresnet100"), device=dev)
+    clf = pipeline.Classifier(build_model(
+        "MLPModel", input_dim=512, num_classes=PROD_CLASSES), device=dev)
+    names, thresholds, _ = name_tables()
+    tpl, fs = pipeline.center_point_dict["(112, 112)"], (112, 112)
+    imgs = list(build_frames(REC_FRAMES, SIZE, FACES_PER_FRAME))
+
+    def flow(timer=None):
+        faces, boxes = pipeline.parallel_detect_and_align(
+            imgs, det, tpl, fs, timer=timer)
+        return faces, boxes, pipeline.recognize_celeb(
+            faces, None, enc, clf, None, names, thresholds, timer=timer)
+
+    flow()
+    torch.cuda.synchronize()
+    timer = StageTimer()
+    kernels.reset_launch_counts()
+    times = []
+    for _ in range(REC_CALLS):
+        t0 = time.perf_counter()
+        faces, boxes, got_names = flow(timer)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    counts = kernels.launch_counts()
+    check_line_counts(counts, {"nms_keep_mask": 1, "similarity_warp": 1},
+                      REC_CALLS, "re50 library", results)
+    per_frame = [len(f) for f in faces]
+    if not sum(per_frame) or any(len(n) != len(f) for n, f in
+                                 zip(got_names, faces)):
+        fail(f"re50 library: faces per frame {per_frame}")
+    median = sorted(times)[len(times) // 2] * 1e3
+    stages = ", ".join(f"{name} {st['mean_ms']:.2f}"
+                       for name, st in timer.report().items())
+    busy, top = busy_ms(torch, flow)
+    phase("re50", f"RetinaFace cfg_re50 (seeded as the JAX package inits it, offset "
+          f"heads x {RE50_OFFSET_SCALE}, "
+          f"built in {build_s:.2f} s; JSON cut {RE50_CUT}) -> "
+          f"parallel_detect_and_align -> recognize_celeb (iresnet100 + MLP "
+          f"{PROD_CLASSES}) on {REC_FRAMES} frames of {SIZE} px, f32, TF32 "
+          f"off: median {median:.2f} ms a call (host clock, {REC_CALLS} "
+          f"calls; stage means ms: {stages}); one profiled call: device "
+          f"busy {busy:.2f} ms = {busy / median:.1%} of the median (top: "
+          f"{top}); faces per frame {per_frame}; launches "
+          f"{({k: n for k, n in counts.items() if n})} = K3 and K1 once a "
+          f"call ({card})")
+
+    # the net alone on the call's frames, TF32 off (the gates') and on
+    # (PyTorch's default, what a user runs)
+    frames = torch.from_numpy(np.stack(imgs)).to(dev)
+    flops = re50_flops(torch) * len(imgs)
+    nets = []
+    for tf32 in (False, True):
+        torch.backends.cudnn.allow_tf32 = tf32
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+        try:
+            with torch.no_grad():
+                ms = median_ms(torch, lambda: det.net(frames), runs=10,
+                               warmup=2)
+                busy, top = busy_ms(torch, lambda: det.net(frames))
+        finally:
+            torch.backends.cudnn.allow_tf32 = False
+            torch.backends.cuda.matmul.allow_tf32 = False
+        peak = PEAK_TF32 if tf32 else PEAK_F32
+        nets.append(f"TF32 {'on' if tf32 else 'off'}: {ms:.2f} ms (CUDA "
+                    f"events, median of 10), {flops / ms / 1e9:.1f} TFLOP/s, "
+                    f"bound {flops / peak * 1e3:.2f} ms (operations), device "
+                    f"{busy:.2f} ms (top: {top})")
+    phase("re50-net", f"the re50 net alone on the call's {len(imgs)} frames "
+          f"of {SIZE} px, f32, {flops / 1e9:.1f} GFLOP: " + "; ".join(nets)
+          + f" ({card})")
+
+    # the JSON's net as built, offsets not shrunk, on both devices
+    det_cpu = build_detector("RetinaFace", device="cpu", **cfg)
+    net_gpu = copy.deepcopy(det_cpu.net).to(dev)
+    two = torch.from_numpy(np.stack(imgs[:2]))
+    with torch.no_grad():
+        gpu = [t.cpu() for t in net_gpu(two.to(dev))]
+        cpu = det_cpu.net(two)
+    parts = []
+    for what, g, c in zip(("loc", "conf", "landmarks"), gpu, cpu):
+        err = check_close(torch, g, c, 1e-3, 1e-3, f"re50 card vs CPU {what}")
+        beyond = int(((g - c).abs() > 1e-4 + 1e-3 * c.abs()).sum())
+        parts.append(f"{what} {tuple(g.shape)} max abs diff {err:.2e}, "
+                     f"{beyond} beyond atol 1e-4, max |value| "
+                     f"{float(c.abs().max()):.3g}")
+    phase("re50-card-vs-cpu", f"the seeded re50 net's head outputs (offsets "
+          f"not shrunk) on 2 frames of {SIZE} px, f32, TF32 off, within rtol "
+          f"1e-3 atol 1e-3: "
+          + "; ".join(parts) + f" ({card})")
+
+
 def main():
     if not os.path.isdir(os.path.join(HERE, PKG)):
         fail(f"no {PKG} package beside {os.path.basename(__file__)}; run "
@@ -4067,7 +4740,22 @@ def main():
 
     # ---- 25. FAN and the dataset tools -------------------------------------
     phase_fan(torch, kernels, dev, card, results)
+    torch.cuda.empty_cache()
     lap("25")
+
+    # ---- 26. JPEG and video through the CLIs' readers ----------------------
+    phase_readers(torch, kernels, dev, card, results)
+    torch.cuda.empty_cache()
+    lap("26")
+
+    # ---- 27. the SE-IR encoder and ArcMargin -------------------------------
+    phase_se_ir(torch, kernels, K1, dev, card, results)
+    torch.cuda.empty_cache()
+    lap("27")
+
+    # ---- 28. RetinaFace cfg_re50 through the library -----------------------
+    phase_re50(torch, kernels, dev, card, results)
+    lap("28")
 
     kernel_rows = []
     for kname, (src, replaces) in KERNEL_SOURCES.items():

@@ -289,8 +289,9 @@ def test_build_model_classify_semantics(monkeypatch, tmp_path, capsys):
     assert fresh.logits.out_features == 7
     assert float(fresh.logits.weight.detach().std()) > 0.0
     assert float(fresh.logits.bias.detach().abs().max()) == 0.0
-    with pytest.raises(NotImplementedError, match="classification head"):
-        PM.build_model("iresnet50", n_classes=10)
+    # the iresnets take a classification head too, as the JAX IResNet does
+    head = PM.build_model("iresnet50", n_classes=10)
+    assert head.logits.out_features == 10
 
 
 # ---------------------------------------------------------------------------

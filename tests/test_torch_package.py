@@ -43,7 +43,8 @@ def test_port_imports_without_jax_or_flax():
                 "training.checkpoint", "cli.demo_image", "cli.demo_video",
                 "cli.celeb_statistic", "cli.find_embedding", "native.loader",
                 "utils.io", "utils.misc", "models.fan", "cli.crop_face",
-                "cli.align_face", "cli.split_train_val"):
+                "cli.align_face", "cli.split_train_val",
+                "models.resnet_encoder"):
         assert f"{PKG}.{mod}" in mods
     code = (
         "import sys\n"

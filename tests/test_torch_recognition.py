@@ -130,7 +130,7 @@ def test_stage_timer_format_matches_jax(tmp_path):
 
 def test_registry_resolves_the_jax_names(monkeypatch, tmp_path):
     """build_model and build_detector resolve every JAX registry name and
-    its configs; resnet101 raises NotImplementedError; pretrained weights
+    its configs, resnet101 included; pretrained weights
     come from local files only, else a seeded initialisation (the same
     weights on every build) after a warning."""
     monkeypatch.setenv("TORCH_HOME", str(tmp_path))
@@ -158,8 +158,9 @@ def test_registry_resolves_the_jax_names(monkeypatch, tmp_path):
     emo2 = TMods.build_model("resnet_2branch_50", num_classes=690,
                              checkpoint_path=path)
     torch.testing.assert_close(emo2.state_dict(), emo.state_dict())
-    with pytest.raises(NotImplementedError, match="A.10"):
-        TMods.build_model("resnet101")
+    se = TMods.build_model("resnet101", use_se=True, img_size=112,
+                           cp_path="insight-face-v3.pt")  # absent: seeded
+    assert isinstance(se, TMods.ResNetSE) and len(se.layer3) == 23
     with pytest.raises(KeyError):
         TMods.build_model("nope")
     jnames = {"MLPModel", "InceptionResnetV1", "iresnet34", "iresnet50",

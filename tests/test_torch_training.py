@@ -799,8 +799,8 @@ def test_aug_trainer_facenet_aug_learns_with_frozen_encoder(face_dataset,
                                                             tmp_path):
     """With facenet_aug on the CPU (K1's plain version, no launch), the
     training loss falls over 8 epochs; the encoder's weights are unchanged
-    and no gradient reaches them; resnet101 (chosen_idx_enc 1) and more
-    than one device raise."""
+    and no gradient reaches them; resnet101 (chosen_idx_enc 1) builds the
+    frozen SE-IR encoder; more than one device raises."""
     enc = seeded_init_(IResNet((1, 1, 1, 1)), torch.Generator().manual_seed(3))
     w0 = {k: v.clone() for k, v in enc.state_dict().items()}
     mlp = build_model("MLPModel", input_dim=512, num_classes=4,
@@ -821,9 +821,10 @@ def test_aug_trainer_facenet_aug_learns_with_frozen_encoder(face_dataset,
     for k, v in pt.encoder.state_dict().items():
         assert torch.equal(v, w0[k]), k
     assert not pt.encoder.training
-    cfg["trainer"]["chosen_idx_enc"] = 1
-    with pytest.raises(NotImplementedError, match="resnet101"):
-        PAug(cfg, mlp, device="cpu")
+    cfg["trainer"]["chosen_idx_enc"] = 1  # the SE-IR encoder, frozen
+    se = PAug(cfg, mlp, device="cpu").encoder
+    assert type(se).__name__ == "ResNetSE" and not se.training
+    assert not any(p.requires_grad for p in se.parameters())
     cfg["trainer"]["chosen_idx_enc"] = 2
     cfg["trainer"]["n_devices"] = 2
     with pytest.raises(NotImplementedError, match="A.8"):

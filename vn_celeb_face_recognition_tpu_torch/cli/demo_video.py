@@ -11,13 +11,17 @@ saved frames to MP4 (``-ov``).
   python -m vn_celeb_face_recognition_tpu_torch.cli.demo_video -vp clip.mp4 \\
       -l2n meta_data/face_recognition/label2name.txt -m model_best.pth
 
-Frames are decoded by the IO runtime (``native.loader.VideoReader``) on a
-reader thread, so the next chunk decodes while the card works on this one,
-and stay RGB. A chunk runs through the recognition library (K1-K8 by
+Frames are decoded on a reader thread, so the next chunk decodes while
+the card works on this one, by the IO runtime (``native.loader.VideoReader``)
+where it builds, else by ``cv2.VideoCapture`` (``frame_chunks``), and are
+RGB. A chunk runs through the recognition library (K1-K8 by
 detector), or with ``--fused_engine`` through ``FusedRecognitionEngine``
-(MTCNN only). Only ``-sfr`` and ``-ov`` need cv2.
+(MTCNN only). ``-sfr`` and ``-ov`` need cv2, and so does reading where
+the IO runtime does not build.
 """
 
+import contextlib
+import functools
 import glob
 import os
 import queue
@@ -103,13 +107,60 @@ def chunk_frames(read_next, fps, n_frames, frame_idxes=None):
         yield frames, infos
 
 
-def frame_chunks(video_path, n_frames, frame_idxes=None, prefetch=2):
-    """``chunk_frames`` over the IO runtime's reader of ``video_path``, run
-    on a reader thread ``prefetch`` chunks ahead. Frames are RGB uint8
-    [H, W, 3]; the video's own fps (25 when it states none) drives the
-    times and the sampling. A decode error is raised here."""
+@contextlib.contextmanager
+def _runtime_frames(video_path, n_frames):
+    """(read_next, fps) over the IO runtime's reader, RGB frames."""
     from ..native.loader import VideoReader
 
+    with VideoReader(video_path) as reader:
+        pending = deque()
+
+        def read_next():
+            if not pending:
+                pending.extend(reader.read(max(n_frames, 8)))
+                if not pending:
+                    return None
+            return pending.popleft()
+
+        yield read_next, reader.fps
+
+
+@contextlib.contextmanager
+def _cv2_frames(video_path, use_native):
+    """(read_next, fps) over ``cv2.VideoCapture``, its BGR frames turned
+    to RGB; fps from ``CAP_PROP_FPS``, 25 when it is 0."""
+    from ..native.loader import cv2_module
+
+    cv2 = cv2_module("video_io", use_native, "video frames")
+    cap = cv2.VideoCapture(str(video_path))
+    try:
+        if not cap.isOpened():
+            raise IOError(f"cannot open video {video_path}")
+
+        def read_next():
+            ok, frame = cap.read()
+            return np.ascontiguousarray(frame[..., ::-1]) if ok else None
+
+        yield read_next, cap.get(cv2.CAP_PROP_FPS) or 25.0
+    finally:
+        cap.release()
+
+
+def frame_chunks(video_path, n_frames, frame_idxes=None, prefetch=2,
+                 use_native=None):
+    """``chunk_frames`` over a reader of ``video_path``, run on a reader
+    thread ``prefetch`` chunks ahead. The reader is the JAX CLI's choice
+    (``native.loader.use_runtime``, printed to stderr): None takes the IO
+    runtime when it builds here, else ``cv2.VideoCapture``; True the
+    runtime; False cv2. Frames are RGB uint8 [H, W, 3]; the video's own
+    fps (25 when it states none) drives the times and the sampling. A
+    reader's error, its build error included, is raised here."""
+    from ..native.loader import use_runtime
+
+    if use_runtime("video_io", use_native, "video frames"):
+        open_frames = functools.partial(_runtime_frames, video_path, n_frames)
+    else:
+        open_frames = functools.partial(_cv2_frames, video_path, use_native)
     q = queue.Queue(maxsize=prefetch)
     stop = threading.Event()
 
@@ -124,17 +175,8 @@ def frame_chunks(video_path, n_frames, frame_idxes=None, prefetch=2):
 
     def producer():
         try:
-            with VideoReader(video_path) as reader:
-                pending = deque()
-
-                def read_next():
-                    if not pending:
-                        pending.extend(reader.read(max(n_frames, 8)))
-                        if not pending:
-                            return None
-                    return pending.popleft()
-
-                for chunk in chunk_frames(read_next, reader.fps, n_frames,
+            with open_frames() as (read_next, fps):
+                for chunk in chunk_frames(read_next, fps, n_frames,
                                           frame_idxes):
                     if not put(("chunk", chunk)):
                         return

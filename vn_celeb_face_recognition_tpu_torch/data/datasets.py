@@ -8,7 +8,7 @@ numpy (uint8 HWC RGB images, f32 embeddings); normalisation and
 augmentation run on the device in the trainer's step.
 
 Images are decoded by ``utils.frames.read_image`` (PNG in Python, JPEG
-through the port's IO runtime), not PIL: grey, palette and alpha PNGs
+through the port's IO runtime, or cv2 where it does not build), not PIL: grey, palette and alpha PNGs
 come out as the RGB that ``Image.convert("RGB")`` gives.
 """
 

@@ -21,6 +21,12 @@ from .layers import coerce_dtype, read_state_dict, seeded_init_
 from .mlp import MLPModel
 from .mtcnn import MTCNN
 from .resnet_2_branch import ResNet2Branch, resnet_2branch_50
+from .resnet_encoder import (
+    ArcMarginModel,
+    ResNetSE,
+    build_resnet_se,
+    resnet101,
+)
 from .retinaface import RetinaFace, RetinaFaceNet
 
 _JAX_WEIGHTS = os.path.join(
@@ -55,14 +61,6 @@ def _load_first(module, candidates, skip=()):
             module.load_state_dict(sd, strict=True)
             return True
     return False
-
-
-def _no_head(what, **head):
-    given = {k: v for k, v in head.items() if v}
-    if given:
-        raise NotImplementedError(
-            f"{what} with a classification head ({given}) is a training "
-            "configuration; the port builds the embedding encoder only")
 
 
 def _facenet_candidates(pretrained, weights_path=None):
@@ -148,15 +146,17 @@ def _build_inception_resnet_v1(pretrained=None, classify=False,
 def _build_iresnet(depth, pretrained=False, checkpoint_path="",
                    freeze_weights=False, n_classes=None, num_features=512,
                    weights_path=None, dtype=None):
-    _no_head(f"iresnet{depth}", n_classes=n_classes)
-    if num_features != 512:
-        raise NotImplementedError(
-            f"iresnet{depth} is ported with 512 features, not {num_features}")
-    module = IResNet(_DEPTH_LAYERS[depth], dtype=coerce_dtype(dtype))
+    """The JAX ``build_iresnet``'s semantics: ``num_features`` sizes ``fc``
+    and ``features``, ``n_classes`` adds the ``logits`` head; published
+    weights load strictly, without their ``logits`` when no head is
+    asked for."""
+    module = IResNet(_DEPTH_LAYERS[depth], num_features=num_features,
+                     n_classes=n_classes, dtype=coerce_dtype(dtype))
     if not pretrained:
         return _seeded(module)
     candidates = _iresnet_candidates(depth, weights_path, checkpoint_path)
-    if not _load_first(module, candidates, skip=("logits.",)):
+    skip = ("logits.",) if n_classes is None else ()
+    if not _load_first(module, candidates, skip=skip):
         print(f"Warning: pretrained iresnet{depth} requested but no local "
               "weights found; the encoder is randomly initialised. Convert "
               "the published torch checkpoint with tools/convert_weights.py.")
@@ -178,11 +178,6 @@ def _build_resnet_2branch_50(pretrained=False, checkpoint_path=None,
     return module
 
 
-def _build_resnet101(**kwargs):
-    raise NotImplementedError(
-        "resnet101 (the SE-IR encoder) is not ported yet (ROADMAP.md, A.10)")
-
-
 def _build_mlp(input_dim, num_classes, dropout_prob=0.5):
     return _seeded(MLPModel(input_dim, num_classes, dropout_prob))
 
@@ -193,7 +188,7 @@ _BUILDERS = {
     "iresnet34": lambda **kw: _build_iresnet(34, **kw),
     "iresnet50": lambda **kw: _build_iresnet(50, **kw),
     "iresnet100": lambda **kw: _build_iresnet(100, **kw),
-    "resnet101": _build_resnet101,
+    "resnet101": build_resnet_se,
     "resnet_2branch_50": _build_resnet_2branch_50,
 }
 
@@ -223,6 +218,7 @@ def build_detector(name, **args):
 
 
 __all__ = [
+    "ArcMarginModel",
     "FAN",
     "FANLandmarker",
     "IResNet",
@@ -233,6 +229,8 @@ __all__ = [
     "MLPModel",
     "MTCNN",
     "ResNet2Branch",
+    "ResNetSE",
+    "resnet101",
     "resnet_2branch_50",
     "RetinaFace",
     "RetinaFaceNet",

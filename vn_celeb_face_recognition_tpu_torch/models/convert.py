@@ -10,7 +10,9 @@ hold, so a checkpoint the port writes is one both packages read.
 
 Rules: conv kernels [kh, kw, I, O] -> weight [O, I, kh, kw]; dense
 kernels [I, O] -> weight [O, I]; BatchNorm scale/bias and batch_stats
-mean/var -> weight/bias/running_mean/running_var; PReLU alpha -> weight.
+mean/var -> weight/bias/running_mean/running_var; PReLU alpha -> weight
+(a scalar PReLU's [1] too); a raw ``weight`` parameter (ArcMargin's
+[num_classes, emb], at the top of its tree) keeps its name and layout.
 """
 
 import numpy as np
@@ -63,6 +65,8 @@ def state_dict_from_jax(variables_np):
             out[key + ".bias"] = value
         elif leaf == "alpha":
             out[key + ".weight"] = value  # PReLU slope vector
+        elif leaf == "weight" and not scope:
+            out["weight"] = value  # a raw parameter, as it is
         else:
             raise ValueError(f"Unhandled flax param leaf: {path}")
     return {k: torch.from_numpy(np.array(v, dtype=np.float32, copy=True))
@@ -94,6 +98,9 @@ def state_dict_to_jax(module_or_state_dict):
                  if k.endswith(".running_mean")}
     params, batch_stats = {}, {}
     for key, value in sd.items():
+        if "." not in key:  # a raw parameter at the top (ArcMargin's)
+            _nest(params, key, value)
+            continue
         scope, leaf = key.rsplit(".", 1)
         if leaf in ("running_mean", "running_var"):
             _nest(batch_stats, f"{scope}.{leaf[len('running_'):]}", value)

@@ -3,14 +3,17 @@
 Counterpart of ``vn_celeb_face_recognition_tpu/models/iresnet.py`` with
 the torch reference's keys: IBasicBlock = BN-Conv-BN-PReLU-Conv(stride)-BN
 plus the residual (1x1-conv downsample where needed), BN eps 2e-5, no
-pooling before ``fc`` (a channel-major flatten of the 7x7 map), then the
-BatchNorm1d ``features``. Dropout is inactive at inference and omitted.
+pooling before ``fc`` (a channel-major flatten of the 7x7 map) to
+``num_features``, then the BatchNorm1d ``features``; with ``n_classes``, a
+``logits`` Linear and ``log_softmax``. Dropout is inactive at inference and
+omitted.
 
 Dtype contract: parameters stay f32; the trunk computes in ``dtype``;
-the flatten, ``fc`` and ``features`` run in f32.
+the flatten, ``fc``, ``features`` and ``logits`` run in f32.
 """
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from .layers import batch_norm, conv, linear, prelu
@@ -61,9 +64,11 @@ class Layer(nn.Sequential):
 
 
 class IResNet(nn.Module):
-    """[N, 3, 112, 112] standardised faces -> [N, 512] f32."""
+    """[N, 3, 112, 112] standardised faces -> [N, num_features] f32, or
+    with ``n_classes`` the [N, n_classes] log-probabilities."""
 
-    def __init__(self, layers, dtype=torch.float32):
+    def __init__(self, layers, num_features=512, n_classes=None,
+                 dtype=torch.float32):
         super().__init__()
         self.dtype = dtype
         self.conv1 = nn.Conv2d(3, 64, 3, 1, 1, bias=False)
@@ -74,8 +79,10 @@ class IResNet(nn.Module):
         self.layer3 = Layer(256, layers[2], 2, 128)
         self.layer4 = Layer(512, layers[3], 2, 256)
         self.bn2 = _bn(512)
-        self.fc = nn.Linear(512 * 7 * 7, 512)  # the 7x7 map of 112 px
-        self.features = nn.BatchNorm1d(512, eps=_BN_EPS)
+        self.fc = nn.Linear(512 * 7 * 7, num_features)  # 7x7 at 112 px
+        self.features = nn.BatchNorm1d(num_features, eps=_BN_EPS)
+        self.logits = (nn.Linear(num_features, n_classes)
+                       if n_classes is not None else None)
 
     def forward(self, x):
         x = x.to(self.dtype)
@@ -84,7 +91,10 @@ class IResNet(nn.Module):
         x = batch_norm(self.bn2, x)
         # NCHW flatten is the channel-major order the fc weights expect
         x = x.reshape(x.shape[0], -1).to(torch.float32)
-        return batch_norm(self.features, linear(self.fc, x))
+        x = batch_norm(self.features, linear(self.fc, x))
+        if self.logits is not None:
+            x = F.log_softmax(linear(self.logits, x), dim=-1)
+        return x
 
 
 def iresnet34(**kwargs):

@@ -129,16 +129,20 @@ def load_npz(net, path):
     return net
 
 
-def seeded_init_(module, generator):
+def seeded_init_(module, generator, scale=2.0):
     """Deterministic random init from an explicit ``torch.Generator``:
-    He-normal conv/linear weights, zero biases, identity BatchNorm,
-    PReLU slopes 0.25. Returns the module."""
+    conv/linear weights normal with variance ``scale / fan_in`` (He-normal;
+    1.0 is flax's lecun-normal), zero biases, identity BatchNorm,
+    PReLU slopes 0.25; a lazy layer not yet initialised is left for its
+    owner to seed. Returns the module."""
     with torch.no_grad():
         for m in module.modules():
             if isinstance(m, (nn.Conv2d, nn.Linear)):
+                if isinstance(m.weight, nn.UninitializedParameter):
+                    continue
                 fan_in = m.weight[0].numel()
                 w = torch.randn(m.weight.shape, generator=generator)
-                m.weight.copy_(w * (2.0 / fan_in) ** 0.5)
+                m.weight.copy_(w * (scale / fan_in) ** 0.5)
                 if m.bias is not None:
                     m.bias.zero_()
             elif isinstance(m, (nn.BatchNorm1d, nn.BatchNorm2d)):

@@ -1,8 +1,10 @@
-"""RetinaFace single-shot face detector (MobileNetV1-0.25 trunk), NCHW.
+"""RetinaFace single-shot face detector (MobileNetV1-0.25 or ResNet-50
+trunk), NCHW.
 
 Counterpart of ``vn_celeb_face_recognition_tpu/models/retinaface.py``:
-the same MobileNetV1-0.25 body, FPN, SSH and heads with the torch
-reference's state_dict keys, so the vendored torch-keyed
+the same bodies (``cfg_mnet``: MobileNetV1-0.25; ``cfg_re50``: the
+torchvision ResNet-50 trunk tapped at layer2-4), FPN, SSH and heads with
+the torch reference's state_dict keys, so the vendored torch-keyed
 ``retinaface_mnet025.npz`` loads straight into ``load_state_dict``. The
 detector keeps the JAX package's fixed-capacity inference: priors once
 per frame size, conf > ``conf_thres``, per-frame top ``nms_cap``, decode
@@ -11,10 +13,13 @@ top ``out_cap`` faces per frame for the engine (``detect_padded``), or
 every face, up to ``keep_top_k``, as numpy lists for the host API
 (``inference``).
 
-The net takes the uint8 frames: stage 1 of the body runs through kernel
-K6 (``ops.planar_s1``), which subtracts the channel means itself; stages
-2-3, FPN, SSH and heads are cuDNN convolutions. Only ``cfg_mnet`` is
-ported; the ResNet-50 body is later work.
+The net takes the uint8 frames. On ``cfg_mnet``, stage 1 of the body runs
+through kernel K6 (``ops.planar_s1``), which subtracts the channel means
+itself; stages 2-3 are cuDNN convolutions. On ``cfg_re50`` the means are
+subtracted in torch and the whole trunk is cuDNN convolutions (the
+``models.resnet_common`` Bottlenecks; the JAX package runs its re50 in
+XLA, not through its bottleneck kernel). FPN, SSH and heads are cuDNN
+convolutions on both.
 """
 
 import os
@@ -29,7 +34,8 @@ from ..ops import boxes as B
 from ..ops.nms import check_set_caps
 from ..ops.planar_s1 import STAGE1_SPECS, mnet_stage1
 from ..utils.device import select_device
-from .layers import batch_norm, conv, load_npz
+from .layers import batch_norm, conv, load_npz, seeded_init_
+from .resnet_common import ResLayer
 
 _REPO_ROOT = os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
@@ -39,6 +45,7 @@ WEIGHTS_NPZ = os.path.join(_REPO_ROOT, "vn_celeb_face_recognition_tpu",
 # per-channel means the net subtracts from the frames (BGR order of the
 # reference's cv2 input)
 CHANNELS_SUBTRACT = (104.0, 117.0, 123.0)
+INIT_SCALE = 1.0  # seeded_init_'s variance scale: flax's lecun-normal
 
 cfg_mnet = {
     "name": "mobilenet0.25",
@@ -49,6 +56,18 @@ cfg_mnet = {
     "in_channel": 32,
     "out_channel": 64,
 }
+
+cfg_re50 = {
+    "name": "Resnet50",
+    "min_sizes": [[16, 32], [64, 128], [256, 512]],
+    "steps": [8, 16, 32],
+    "variance": [0.1, 0.2],
+    "clip": False,
+    "in_channel": 256,
+    "out_channel": 256,
+}
+
+CONFIGS = {"cfg_mnet": cfg_mnet, "cfg_re50": cfg_re50}
 
 
 def _leaky(x, slope):
@@ -116,6 +135,34 @@ class MobileNetV1Body(nn.Module):
         return s1, s2, self.stage3(s2)
 
 
+class ResNet50Body(nn.Module):
+    """The torchvision ResNet-50 trunk (keys ``conv1``, ``bn1``,
+    ``layer1..4``): conv 7x7/2, BN, ReLU, max pool 3x3/2 (pad 1), then
+    3, 4, 6 and 3 Bottlenecks, tapped at layer2, layer3 and layer4."""
+
+    def __init__(self):
+        super().__init__()
+        self.conv1 = nn.Conv2d(3, 64, 7, 2, 3, bias=False)
+        self.bn1 = nn.BatchNorm2d(64)
+        self.layer1 = ResLayer(64, 3, 1, 64)
+        self.layer2 = ResLayer(128, 4, 2, 256)
+        self.layer3 = ResLayer(256, 6, 2, 512)
+        self.layer4 = ResLayer(512, 3, 2, 1024)
+
+    def forward(self, frames, dtype):
+        """frames [N, H, W, 3] uint8 -> the three NCHW taps in ``dtype``;
+        the channel means are subtracted in f32 first, in the frames'
+        channel order, as the JAX package does."""
+        sub = torch.tensor(CHANNELS_SUBTRACT, dtype=torch.float32,
+                           device=frames.device)
+        x = (frames.to(torch.float32) - sub).permute(0, 3, 1, 2).to(dtype)
+        x = F.relu(batch_norm(self.bn1, conv(self.conv1, x)))
+        x = F.max_pool2d(x, 3, 2, 1)
+        c2 = self.layer2(self.layer1(x))
+        c3 = self.layer3(c2)
+        return c2, c3, self.layer4(c3)
+
+
 class FPN(nn.Module):
     def __init__(self, in_channels, out_channels):
         super().__init__()
@@ -179,15 +226,16 @@ class HeadList(nn.ModuleList):
 
 
 class RetinaFaceNet(nn.Module):
-    """mobilenet0.25 RetinaFace: [N, H, W, 3] uint8 frames -> (loc [N, A,
-    4], softmax conf [N, A, 2], landmarks [N, A, 10]), all f32; the
-    convolutions run in ``dtype``."""
+    """RetinaFace on ``cfg`` (``cfg_mnet`` or ``cfg_re50``): [N, H, W, 3]
+    uint8 frames -> (loc [N, A, 4], softmax conf [N, A, 2], landmarks
+    [N, A, 10]), all f32; the convolutions run in ``dtype``."""
 
-    def __init__(self, dtype=torch.float32):
+    def __init__(self, dtype=torch.float32, cfg=cfg_mnet):
         super().__init__()
         self.dtype = dtype
-        c_in, c_out = cfg_mnet["in_channel"], cfg_mnet["out_channel"]
-        self.body = MobileNetV1Body()
+        c_in, c_out = cfg["in_channel"], cfg["out_channel"]
+        self.body = (ResNet50Body() if cfg["name"] == "Resnet50"
+                     else MobileNetV1Body())
         self.fpn = FPN([c_in * 2, c_in * 4, c_in * 8], c_out)
         self.ssh1 = SSH(c_out, c_out)
         self.ssh2 = SSH(c_out, c_out)
@@ -209,13 +257,16 @@ class RetinaFace:
     ``vis_thres``, up to ``out_cap``.
 
     Constructor arguments mirror the JAX package's ``RetinaFace``, so
-    ``cfg/detection/retina_face.json`` builds it as it is. Weights load from
+    ``cfg/detection/retina_face.json`` builds it as it is; ``backbone_cfg``
+    is ``"cfg_mnet"``, ``"cfg_re50"`` or such a dict. Weights load from
     the first of ``weights_path`` and ``checkpoint_path`` that exists (a
-    torch-keyed ``.npz`` or a torch ``.pth``); without one the net keeps
-    PyTorch's default initialisation. ``phase`` and ``backbone_path`` are
-    accepted and unused, as in the JAX package, and so is
+    torch-keyed ``.npz`` or a torch ``.pth``); without one the net is
+    seeded as the JAX package inits it: lecun-normal weights, zero biases,
+    identity BatchNorm (``layers.seeded_init_``, ``torch.Generator`` seed
+    0), so every build of a config holds the same weights. ``phase`` and
+    ``backbone_path`` are accepted and unused, as in the JAX package, and so is
     ``planar_stage1``: it chose the JAX package's stage-1 formulation, and
-    here stage 1 always runs through kernel K6 on the card. ``keep_top_k``
+    here the mnet's stage 1 always runs through kernel K6 on the card. ``keep_top_k``
     caps the faces ``inference`` returns per image. ``dtype`` is the
     compute dtype of the net (heads and decode stay f32) and ``device``
     where it runs (the card unless ``"cpu"`` is asked for; a missing card
@@ -227,10 +278,8 @@ class RetinaFace:
                  keep_top_k=750, nms_thres=0.4, vis_thres=0.6,
                  checkpoint_path=None, nms_cap=1024, weights_path=None,
                  dtype=torch.float32, planar_stage1=None, device="cuda"):
-        if backbone_cfg not in ("cfg_mnet", cfg_mnet):
-            raise NotImplementedError(
-                f"only cfg_mnet is ported, got {backbone_cfg!r}")
-        self.cfg = cfg_mnet
+        self.cfg = (CONFIGS[backbone_cfg] if isinstance(backbone_cfg, str)
+                    else backbone_cfg)
         self.phase = phase
         self.conf_thres = conf_thres
         self.keep_top_k = keep_top_k
@@ -240,14 +289,17 @@ class RetinaFace:
         self.out_cap = 16  # the engine's per-frame face capacity
         self.device = select_device(device)
         check_set_caps(self.device.type, nms_cap=self.nms_cap)
-        self.net = RetinaFaceNet(dtype)
+        self.net = RetinaFaceNet(dtype, self.cfg)
         paths = [p for p in (weights_path, checkpoint_path) if p]
         found = [p for p in paths if os.path.exists(p)]
         if found:
             load_npz(self.net, found[0])
-        elif paths:
-            warnings.warn(f"RetinaFace: no weights at {paths}; the net keeps "
-                          "its random initialisation", stacklevel=2)
+        else:
+            if paths:
+                warnings.warn(f"RetinaFace: no weights at {paths}; the net "
+                              "is seeded", stacklevel=2)
+            seeded_init_(self.net, torch.Generator().manual_seed(0),
+                         INIT_SCALE)
         self.net.to(self.device).eval()
         self._prior_cache = {}
 

@@ -9,8 +9,12 @@ rebuilt when the hash of the source and its flags changes:
     libavutil, libswscale): ``VideoReader``.
 
 A missing compiler, header or library raises ``RuntimeError`` at first use
-with the compiler's output and the name of the missing header; nothing
-falls back to another decoder. Importing this module builds nothing.
+with the compiler's output and the name of the missing header or library.
+The build is tried once a process: ``available(name)`` says whether it
+succeeded, and ``library(name)`` raises the kept reason again after a
+failure. The readers choose between the runtime and cv2 by
+``use_runtime``, the JAX package's rule, and say which they took.
+Importing this module builds nothing.
 """
 
 import ctypes
@@ -19,6 +23,7 @@ import os
 import re
 import shutil
 import subprocess
+import sys
 import threading
 
 import numpy as np
@@ -52,8 +57,11 @@ LIBRARIES = {
     }),
 }
 _MISSING_HEADER = re.compile(r"fatal error: ([^:\s]+): No such file")
+_MISSING_LIB = re.compile(r"cannot find -l([^:\s]+)")
 
 _LIBS = {}
+_FAILED = {}  # library -> the RuntimeError its build or load raised
+_ANNOUNCED = set()  # the reader choices printed so far
 _LOCK = threading.Lock()
 
 
@@ -91,8 +99,9 @@ def build(name):
     proc = subprocess.run(cmd, capture_output=True, text=True)
     if proc.returncode != 0:
         out = proc.stdout + proc.stderr
-        missing = _MISSING_HEADER.search(out)
-        what = (f"header {missing.group(1)} not found" if missing else
+        header, lib = _MISSING_HEADER.search(out), _MISSING_LIB.search(out)
+        what = (f"header {header.group(1)} not found" if header else
+                f"library lib{lib.group(1)} not found" if lib else
                 f"the build failed (it needs the headers {headers} and "
                 f"{' '.join(link)})")
         raise RuntimeError(f"IO runtime {name}: {what}; {' '.join(cmd)}\n"
@@ -104,15 +113,82 @@ def build(name):
 
 
 def library(name):
-    """The loaded library ``name`` (built on first use)."""
+    """The loaded library ``name``, built on first use. A build or load
+    that failed once raises its ``RuntimeError`` again without a retry."""
     with _LOCK:
+        if name in _FAILED:
+            raise _FAILED[name]
         if name not in _LIBS:
-            lib = ctypes.CDLL(build(name))
+            try:
+                lib = ctypes.CDLL(build(name))
+            except OSError as exc:  # a library the loader cannot map
+                _FAILED[name] = RuntimeError(
+                    f"IO runtime {name}: cannot load it: {exc}")
+                raise _FAILED[name] from exc
+            except RuntimeError as exc:
+                _FAILED[name] = exc
+                raise
             for fn, (argtypes, restype) in LIBRARIES[name][3].items():
                 getattr(lib, fn).argtypes = argtypes
                 getattr(lib, fn).restype = restype
             _LIBS[name] = lib
         return _LIBS[name]
+
+
+def available(name):
+    """Whether library ``name`` builds and loads on this machine (the
+    counterpart of the JAX package's ``native.available()``). The build is
+    tried once; after a failure ``unavailable_reason(name)`` says why."""
+    try:
+        library(name)
+    except RuntimeError:
+        return False
+    return True
+
+
+def unavailable_reason(name):
+    """What library ``name``'s build or load reported missing (the header
+    or library, without the compiler's command and output), or None when
+    it has not failed."""
+    exc = _FAILED.get(name)
+    return None if exc is None else str(exc).splitlines()[0].split("; ")[0]
+
+
+def use_runtime(name, use_native, what):
+    """Resolve a reader's ``use_native`` as the JAX package does: None
+    takes the IO runtime when ``available(name)``, else cv2; True takes
+    the runtime (whose build error then raises at first use); False takes
+    cv2. The choice for ``what`` is printed to stderr once a process, with
+    the reason when the runtime was not taken. Returns whether to use the
+    runtime."""
+    if use_native is None:
+        use_native = available(name)
+        why = "" if use_native else (
+            f": the IO runtime is not available ({unavailable_reason(name)})")
+    else:
+        why = f" (use_native={use_native})"
+    reader = (f"the IO runtime ({LIBRARIES[name][0]})" if use_native
+              else "cv2")
+    line = f"{what}: read by {reader}{why}"
+    with _LOCK:
+        if line not in _ANNOUNCED:
+            _ANNOUNCED.add(line)
+            print(line, file=sys.stderr, flush=True)
+    return bool(use_native)
+
+
+def cv2_module(name, use_native, what):
+    """cv2, for a reader of ``what`` that did not take library ``name``;
+    without cv2 the error names both readers."""
+    try:
+        import cv2
+    except ImportError as exc:
+        runtime = (f"the IO runtime is not available "
+                   f"({unavailable_reason(name)})" if use_native is None
+                   else f"use_native={use_native}")
+        raise RuntimeError(f"no reader for {what}: {runtime}, and cv2 "
+                           "(opencv-python) is not installed") from exc
+    return cv2
 
 
 def decode_jpeg_file(path):

@@ -1,6 +1,7 @@
 """Images without PIL: a zlib + numpy PNG reader and writer,
-``read_image`` (PNG here, JPEG through the IO runtime), numpy copies of
-PIL's bicubic and bilinear resizes and of the runtime's bilinear resize,
+``read_image`` (PNG here, JPEG through the IO runtime or cv2), numpy
+copies of PIL's bicubic and bilinear resizes and of the runtime's bilinear
+resize,
 and ``build_frames`` (a mirror of ``bench.build_frames``: real face crops
 pasted on a flat background).
 """
@@ -118,19 +119,28 @@ def read_png(path):
     return np.ascontiguousarray(px[..., :3])
 
 
-def read_image(path):
+def read_image(path, use_native=None):
     """Decode an image file to [H, W, 3] uint8 RGB. The decoder is chosen by
-    the file's signature: PNG by ``read_png``, JPEG by the port's IO runtime
-    (``native.loader.decode_jpeg_file``, libjpeg); any other file raises
-    ``ValueError``."""
+    the file's signature: PNG by ``read_png``; JPEG by the port's IO runtime
+    (``native.loader.decode_jpeg_file``, libjpeg) or by
+    ``cv2.imread(path, cv2.IMREAD_COLOR)`` turned to RGB, as
+    ``native.loader.use_runtime`` resolves ``use_native`` (None: the
+    runtime when it builds here, else cv2). Any other file raises
+    ``ValueError``; a JPEG with neither reader raises ``RuntimeError``."""
     with open(path, "rb") as fh:
         head = fh.read(8)
     if head == _PNG_SIG:
         return read_png(path)
     if head[:2] == b"\xff\xd8":
-        from ..native.loader import decode_jpeg_file
+        from ..native import loader
 
-        return decode_jpeg_file(path)
+        if loader.use_runtime("image_io", use_native, "JPEG images"):
+            return loader.decode_jpeg_file(path)
+        cv2 = loader.cv2_module("image_io", use_native, "JPEG images")
+        img = cv2.imread(str(path), cv2.IMREAD_COLOR)
+        if img is None:
+            raise ValueError(f"{path}: cv2 could not decode the file")
+        return np.ascontiguousarray(img[..., ::-1])
     raise ValueError(f"{path}: neither a PNG nor a JPEG file (signature "
                      f"{head.hex()})")
 
