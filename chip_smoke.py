@@ -175,6 +175,22 @@ Phases, one line of output each (a failed phase exits non-zero):
       K3 and K1 once a call, median host ms a call; re50-net, the net
       alone with TF32 off and on; re50-card-vs-cpu, the seeded net's head
       outputs (offsets not shrunk) on 2 frames within rtol 1e-3 atol 1e-3.
+  29. detector training: fit, cli.fit_detector.main at the tool's full
+      width (RetinaFace cfg_mnet from seed 0, batch 8 of 640 px synthetic
+      scenes, AdamW + cosine from lr 1e-3, f32, TF32 as PyTorch leaves it)
+      with the steps cut to 40 and an evaluation every 20: losses finite
+      and falling, BatchNorm statistics moved, no launch in a train step,
+      K6 3 in conf_sparsity and K6 3 + K3 1 in detection_recall (exact),
+      median step (CUDA events) and host synth, images/s, the busy share
+      of a profiled step, peak memory; fit-export, the written npz through
+      RetinaFace(weights_path=...) equal to the trained net's
+      detect_padded; fit-k6, K6 on the trained stage 1 after more steps
+      against its plain version (phase 15's gates); fit-card-vs-cpu, one
+      SGD step on 2 scenes of 640 px, TF32 off, the card in f32 against
+      the CPU in f64 (losses rtol 1e-4, parameters and BN statistics
+      1e-3), the CPU's f32 step shown; fit-probe, probe_crop_landmarks
+      on the 20 crops, K2-K5 exact per detect call, points within 0.5 px
+      of the vendored cache and of the CPU probe.
 
 Kernel phases check bf16 at the lines' shapes and f32 on a slice of
 them; exact kernels (K3, K4) are held with torch.equal. Every kernel is
@@ -4331,6 +4347,417 @@ def phase_re50(torch, kernels, dev, card, results):
           + "; ".join(parts) + f" ({card})")
 
 
+# phase 29 (detector-fit): cli.fit_detector at its full width (cfg_mnet,
+# 640 px, batch 8, up to 6 faces a scene, AdamW + cosine from lr 1e-3),
+# the steps cut 1500 -> FIT_STEPS with an evaluation every FIT_EVAL_EVERY
+# and at the end; FIT_PROFILE_STEPS more steps after the export for the
+# busy share; the card-vs-CPU step on FIT_GATE_BATCH scenes with SGD at
+# FIT_GATE_LR. One evaluation calls conf_sparsity (K6's three segments)
+# and detection_recall (K6's three, one NMS), each on synthetic and on
+# bench frames; a train step launches no kernel.
+FIT_STEPS, FIT_EVAL_EVERY, FIT_PROFILE_STEPS = 40, 20, 3
+FIT_GATE_BATCH, FIT_GATE_LR = 2, 1e-3
+FIT_CALL_LAUNCHES = {"conf_sparsity": {"mnet_stage1": 3},
+                     "detection_recall": {"mnet_stage1": 3,
+                                          "nms_keep_mask": 1}}
+FIT_EVAL_LAUNCHES = {"mnet_stage1": 12, "nms_keep_mask": 2}
+
+
+def launched_by(kernels, fn, want, what):
+    """``fn()``, which must launch exactly ``want`` ({kernel: n}, every
+    other kernel 0)."""
+    before = kernels.launch_counts()
+    out = fn()
+    after = kernels.launch_counts()
+    got = {k: after[k] - before[k] for k in after}
+    full = {k: want.get(k, 0) for k in after}
+    if got != full:
+        fail(f"{what}: launches {got}, want {full}")
+    return out
+
+
+@contextlib.contextmanager
+def fit_probes(torch, kernels, FD, rec):
+    """Inside the block: the fit's host synth (``synth_batch``) timed on
+    the host's clock; each train step timed with CUDA events, its
+    launches held to none, the loop's end taken (synchronised) after the
+    last; each evaluation call held to its exact launches and each
+    evaluation timed on the host's clock (synchronised)."""
+    def synth(orig):
+        def wrapped(*args, **kw):
+            t0 = time.perf_counter()
+            out = orig(*args, **kw)
+            rec["synth"].append(time.perf_counter() - t0)
+            rec.setdefault("start", t0)
+            return out
+        return wrapped
+
+    def step(orig):
+        def wrapped(self, batch):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = launched_by(kernels, lambda: orig(self, batch), {},
+                              "a fit train step")
+            end.record()
+            rec["steps"].append((start, end))
+            if len(rec["steps"]) == self.args.steps:
+                torch.cuda.synchronize()
+                rec["end"] = time.perf_counter()
+            return out
+        return wrapped
+
+    def evaluate(orig):
+        def wrapped(self):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            n_synth = len(rec["synth"])
+            out = launched_by(kernels, lambda: orig(self), FIT_EVAL_LAUNCHES,
+                              "a fit evaluation")
+            del rec["synth"][n_synth:]  # the evaluation scenes' draw
+            torch.cuda.synchronize()
+            rec["evals"].append((t0, time.perf_counter() - t0))
+            return out
+        return wrapped
+
+    def counted(name, orig):
+        def wrapped(*args, **kw):
+            return launched_by(kernels, lambda: orig(*args, **kw),
+                               FIT_CALL_LAUNCHES[name], name)
+        return wrapped
+
+    saved = {n: getattr(FD, n) for n in ("synth_batch", *FIT_CALL_LAUNCHES)}
+    FD.synth_batch = synth(saved["synth_batch"])
+    for n in FIT_CALL_LAUNCHES:
+        setattr(FD, n, counted(n, saved[n]))
+    try:
+        with patched(FD.DetectorFit, "train_step", step), \
+                patched(FD.DetectorFit, "evaluate", evaluate):
+            yield
+    finally:
+        for n, f in saved.items():
+            setattr(FD, n, f)
+
+
+def phase_fit(torch, kernels, K6, dev, card, results):
+    """29. Detector training through ``cli.fit_detector.main`` at the
+    tool's full width (cfg_mnet seeded from --seed 0, 640 px, batch 8, up
+    to 6 faces a scene, AdamW + optax's cosine decay from lr 1e-3, wd
+    5e-4, f32, the vendored landmark cache), the steps cut 1500 ->
+    FIT_STEPS with --eval_every FIT_EVAL_EVERY, TF32 as PyTorch leaves it
+    (cuDNN on, matmul off), as a user runs it. ``fit``: every loss
+    finite, the mean of the last 10 below the first, every BatchNorm's
+    running statistics moved, no launch in a train step and exact
+    launches in each evaluation call (counted); median ms a step (CUDA
+    events) and of the host synth, images/s over the training loop, the
+    busy share of a profiled step, peak memory. ``fit-export``: the npz
+    written, loaded by RetinaFace(weights_path=...), gives detect_padded
+    outputs equal to the trained net's in eval mode. ``fit-k6``: after
+    the profiled steps (AdamW and running-statistic writes since the last
+    evaluation folded K6's weights), K6 on the stage-1 modules against
+    mnet_stage1_plain in eval mode: f32 at 1e-4 and bf16 by check_bf16,
+    phase 15's gates. ``fit-card-vs-cpu``, TF32 off: one SGD step from
+    the fitted state on the same FIT_GATE_BATCH scenes of 640 px, the card
+    in f32 against the CPU in f64: losses within rtol 1e-4, parameters and
+    BatchNorm statistics within 1e-3 (relative above 1), the CPU's f32
+    step shown beside. ``fit-probe``:
+    probe_crop_landmarks on data/'s 20 crops on the card, K2-K5 launches
+    exact per detect call, the points within 0.5 px of
+    meta_data/crop_landmarks.npz and of the CPU probe, with the same
+    template fallbacks."""
+    from vn_celeb_face_recognition_tpu_torch.cli import fit_detector as FD
+
+    with scratch("fit_smoke_") as work:
+        fit = fit_line(torch, kernels, FD, dev, card, results, work)
+        fit_k6(torch, K6, fit, card, results)
+        fit_card_vs_cpu(torch, fit, dev, card)
+        fit_probe(torch, kernels, fit, dev, card, results)
+
+
+def fit_line(torch, kernels, FD, dev, card, results, work):
+    """Phase 29's ``fit`` and ``fit-export`` lines; returns the fit."""
+    out = os.path.join(work, "retinaface_fit.npz")
+    rec = {"synth": [], "steps": [], "evals": []}
+    torch.backends.cudnn.allow_tf32 = True  # PyTorch's default
+    try:
+        with open(os.path.join(work, "fit.log"), "w") as log:
+            kernels.reset_launch_counts()
+            torch.cuda.reset_peak_memory_stats()
+            with fit_probes(torch, kernels, FD, rec), \
+                    contextlib.redirect_stdout(log):
+                res = FD.main(["--steps", str(FIT_STEPS), "--eval_every",
+                               str(FIT_EVAL_EVERY), "--out", out])
+            counts = kernels.launch_counts()
+            peak = torch.cuda.max_memory_allocated()
+        fit = res["fit"]
+        args = fit.args
+        n_evals = len(res["evals"])
+        want = {k: FIT_EVAL_LAUNCHES.get(k, 0) * n_evals for k in counts}
+        if n_evals != FIT_STEPS // FIT_EVAL_EVERY or counts != want:
+            fail(f"fit: {n_evals} evaluations, launches {counts}, want "
+                 f"{want}")
+        for k, n in counts.items():
+            if n:
+                results[k]["launches"] = results[k].get("launches", 0) + n
+                results[k]["fit_launches"] = n
+        losses = res["losses"]
+        loss = losses["loss"]
+        moved = [bool((m.running_mean != 0).any()
+                      and (m.running_var != 1).any())
+                 for m in fit.net.modules()
+                 if isinstance(m, torch.nn.BatchNorm2d)]
+        if not all(np.isfinite(v).all() for v in losses.values()):
+            fail(f"fit: non-finite losses {losses}")
+        if not loss[-10:].mean() < loss[0] or not all(moved):
+            fail(f"fit: losses {loss.tolist()}; BatchNorm statistics moved "
+                 f"in {sum(moved)} of {len(moved)} layers")
+        step_ms = sorted(s.elapsed_time(e) for s, e in rec["steps"])
+        synth_ms = sorted(t * 1e3 for t in rec["synth"])
+        in_loop = sum(d for t0, d in rec["evals"] if t0 < rec["end"])
+        loop_s = rec["end"] - rec["start"] - in_loop
+        rate = FIT_STEPS * args.batch / loop_s
+        export = fit_export(torch, FD, fit, out, dev)
+
+        # the busy share of a step as the loop runs it (synth included)
+        def one_step():
+            launched_by(kernels, lambda: fit.train_step(fit.batch()), {},
+                        "a profiled fit step")
+
+        walls = []
+        for _ in range(FIT_PROFILE_STEPS - 1):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            one_step()
+            torch.cuda.synchronize()
+            walls.append((time.perf_counter() - t0) * 1e3)
+        busy, top = busy_ms(torch, one_step)
+    finally:
+        torch.backends.cudnn.allow_tf32 = False
+    wall = sorted(walls)[len(walls) // 2]
+    evals = "; ".join(
+        f"step {i}: synth sparsity {s:.1f} anchors/frame, recall {r:.3f}, "
+        f"bench sparsity {bs:.1f}, recall {br:.3f}"
+        for i, (s, r, bs, br) in res["evals"])
+    eval_s = ", ".join(f"{d:.2f}" for _, d in rec["evals"])
+    launched = {k: n for k, n in counts.items() if n}
+    phase("fit", f"cli.fit_detector.main: RetinaFace cfg_mnet from seed "
+          f"{args.seed}, {args.batch} scenes of {args.size} px a step (up to "
+          f"{args.max_faces} faces), AdamW + cosine from lr {args.lr}, f32, "
+          f"steps cut 1500 -> {FIT_STEPS}, --eval_every {FIT_EVAL_EVERY}; "
+          f"TF32: cuDNN on, matmul off (PyTorch's default): loss "
+          f"{loss[0]:.4f} at step 0 -> {loss[-10:].mean():.4f} mean of the "
+          f"last 10 (loc {losses['loss_loc'][-10:].mean():.4f}, conf "
+          f"{losses['loss_conf'][-10:].mean():.4f}, landm "
+          f"{losses['loss_landm'][-10:].mean():.4f}); BatchNorm statistics "
+          f"moved in all {len(moved)} layers; evaluations: {evals}; median "
+          f"step {step_ms[len(step_ms) // 2]:.2f} ms (CUDA events around "
+          f"train_step; min {step_ms[0]:.2f}, max {step_ms[-1]:.2f}), median "
+          f"host synth {synth_ms[len(synth_ms) // 2]:.2f} ms a batch (host "
+          f"clock); {rate:.1f} images/s over the training loop "
+          f"({loop_s:.2f} s for {FIT_STEPS} steps, evaluations left out); "
+          f"evaluations {eval_s} s; one profiled step (synth + train_step, "
+          f"TF32 as above): device busy {busy:.2f} ms = {busy / wall:.1%} "
+          f"of its {wall:.2f} ms wall (median of {len(walls)}; top: {top}); "
+          f"max_memory_allocated {peak / 2**30:.2f} GiB; launches "
+          f"{launched} = {n_evals} evaluations x {FIT_EVAL_LAUNCHES}, 0 in "
+          f"each of {len(rec['steps'])} train steps ({card})")
+    phase("fit-export", export + f" ({card})")
+    return fit
+
+
+def fit_export(torch, FD, fit, out, dev):
+    """The npz the fit wrote, loaded by RetinaFace(weights_path=...), must
+    give the trained net's detect_padded outputs on the evaluation
+    scenes; returns the ``fit-export`` line."""
+    from vn_celeb_face_recognition_tpu_torch.models import RetinaFace
+    from vn_celeb_face_recognition_tpu_torch.training.detector import (
+        evaluating,
+    )
+
+    args = fit.args
+    frames = torch.from_numpy(fit.eval_sets()[0][0]).to(dev)
+    loaded = RetinaFace(backbone_cfg="cfg_mnet", weights_path=out,
+                        device=dev)
+    with evaluating(fit.net):
+        want = fit.rf.detect_padded(frames)
+    got = loaded.detect_padded(frames)
+    diffs = [float((g.float() - w.float()).abs().max())
+             for g, w in zip(got, want)]
+    with np.load(out) as z:
+        keys = len(z.files)
+    line = (f"{os.path.basename(out)} ({os.path.getsize(out) / 1e6:.2f} MB, "
+            f"{keys} keys) through RetinaFace(weights_path=...) on the "
+            f"{FD.EVAL_BATCH} evaluation scenes of {args.size} px: "
+            f"detect_padded boxes, scores, points, valid max abs diff "
+            f"{diffs} against the trained net in eval mode "
+            f"({int(want[3].sum())} faces kept; want torch.equal)")
+    if keys != 253 or not all(torch.equal(g, w) for g, w in zip(got, want)):
+        fail(f"fit-export: {line}")
+    return line
+
+
+def fit_k6(torch, K6, fit, card, results):
+    """Phase 29's ``fit-k6`` line: K6's cached fold after training, and
+    its f32 grid (what the fit's evaluations launch) timed at their shape
+    against its plain version and bound."""
+    from vn_celeb_face_recognition_tpu_torch.models.retinaface import (
+        CHANNELS_SUBTRACT,
+    )
+
+    args = fit.args
+    stage1 = fit.net.body.stage1
+    frames = fit.batch()[0]
+    fit.net.eval()
+    try:
+        got32 = K6.mnet_stage1(stage1, frames, CHANNELS_SUBTRACT,
+                               torch.float32)
+        want32 = K6.mnet_stage1_plain(stage1, frames, CHANNELS_SUBTRACT,
+                                      torch.float32)
+        err32 = check_close(torch, got32, want32, 1e-4, 1e-4,
+                            "fit-k6 f32")
+        got16 = K6.mnet_stage1(stage1, frames, CHANNELS_SUBTRACT,
+                               torch.bfloat16)
+        _, rel, rel_max, plain16 = check_bf16(
+            torch, got16, want32, K6.mnet_stage1_plain(
+                stage1, frames, CHANNELS_SUBTRACT, torch.bfloat16),
+            "fit-k6 bf16")
+        ms, call_ms, plain_ms = timed(
+            torch, "mnet_stage1",
+            lambda: K6.mnet_stage1(stage1, frames, CHANNELS_SUBTRACT,
+                                   torch.float32),
+            lambda: K6.mnet_stage1_plain(stage1, frames, CHANNELS_SUBTRACT,
+                                         torch.float32))
+    finally:
+        fit.net.train()
+    b = frames.shape[0]
+    bound_ms, bound_by = bound(frames.numel() + got32.numel() * 4,
+                               b * mnet_stage1_flops(args.size, args.size),
+                               PEAK_F32)
+    results["mnet_stage1"]["fit_f32"] = dict(
+        ms=ms, call_ms=call_ms, plain_ms=plain_ms, bound_ms=bound_ms,
+        bound_by=bound_by)
+    phase("fit-k6", f"K6 on the fitted stage 1 after {FIT_PROFILE_STEPS} "
+          f"more AdamW steps (the weights and running statistics written in "
+          f"place since the last evaluation folded them) against "
+          f"mnet_stage1_plain in eval mode on {args.batch}x{args.size}x"
+          f"{args.size} scenes: f32 max abs err {err32:.3e} (rtol/atol "
+          f"1e-4); bf16 rel L2 {rel:.2e}, max/max|ref| {rel_max:.2e} (plain "
+          f"bf16 rel L2 {plain16:.2e}; gates {BF16_REL_L2}, {BF16_REL_MAX}); "
+          f"the f32 grid the evaluations launch: kernel {ms:.3f} ms, call "
+          f"{call_ms:.3f} ms, plain {plain_ms:.3f} ms, bound {bound_ms:.3f} "
+          f"ms ({bound_by}, f32 peak) ({TIMING}; {card})")
+
+
+def fit_card_vs_cpu(torch, fit, dev, card):
+    """Phase 29's ``fit-card-vs-cpu`` line, TF32 off: one SGD step from
+    the fitted state on the card in f32 against the same step on the CPU
+    in f64 (the reference), and on the CPU in f32 beside them. The CPU's
+    f32 step is the less exact of the two, its largest gaps in stage 1's
+    BatchNorm parameters, whose statistics reduce 2 x 320 x 320 values a
+    channel (``tools/torch_fit_precision.py`` measures both sides'
+    gradients against f64)."""
+    from vn_celeb_face_recognition_tpu_torch.models.retinaface import cfg_mnet
+    from vn_celeb_face_recognition_tpu_torch.ops.boxes import make_priors
+    from vn_celeb_face_recognition_tpu_torch.training.detector import (
+        make_detection_train_step,
+        synth_batch,
+    )
+    from vn_celeb_face_recognition_tpu_torch.utils import kernels
+
+    args = fit.args
+    frames, boxes, labels, landms, valid = synth_batch(
+        np.random.default_rng(7), FIT_GATE_BATCH, args.size, fit.crops,
+        fit.landmarks, max_faces=args.max_faces)
+    priors = torch.from_numpy(make_priors(
+        (args.size, args.size), cfg_mnet["min_sizes"], cfg_mnet["steps"],
+        cfg_mnet["clip"]))
+    runs = {}
+    for label, where, dtype in (("card", dev, torch.float32),
+                                ("cpu", torch.device("cpu"), torch.float32),
+                                ("cpu64", torch.device("cpu"),
+                                 torch.float64)):
+        net = copy.deepcopy(fit.net).to(where, dtype).train()
+        net.dtype = dtype
+        kernels.forget_folds(net)
+        step = make_detection_train_step(
+            net, priors.to(where, dtype), tuple(cfg_mnet["variance"]),
+            torch.optim.SGD(net.parameters(), lr=FIT_GATE_LR))
+        t0 = time.perf_counter()
+        losses = step(torch.from_numpy(frames).to(where),
+                      torch.from_numpy(boxes).to(where, dtype),
+                      torch.from_numpy(labels.astype(np.int64)).to(where),
+                      torch.from_numpy(landms).to(where, dtype),
+                      torch.from_numpy(valid).to(where))
+        runs[label] = ({k: float(v) for k, v in losses.items()},
+                       {k: v.detach().cpu().double() for k, v in
+                        net.state_dict().items()
+                        if not k.endswith("num_batches_tracked")},
+                       time.perf_counter() - t0)
+
+    def against_f64(label):
+        (lg, sg, _), (lr, sr, _) = runs[label], runs["cpu64"]
+        rel = max(abs(lg[k] - lr[k]) / abs(lr[k]) for k in lr)
+        par = {k: float((sg[k] - sr[k]).abs().max()) for k in sr
+               if ".running_" not in k}
+        stats = max(float(((sg[k] - sr[k]).abs()
+                           / sr[k].abs().clamp(min=1.0)).max())
+                    for k in sr if ".running_" in k)
+        worst = max(par, key=par.get)
+        return rel, par[worst], worst, stats
+
+    got, cpu32 = against_f64("card"), against_f64("cpu")
+    phase("fit-card-vs-cpu", f"one SGD step (lr {FIT_GATE_LR}) from the "
+          f"fitted state on {FIT_GATE_BATCH} scenes of {args.size} px, TF32 "
+          f"off, the card in f32 against the CPU in f64: losses "
+          + ", ".join(f"{k} {runs['card'][0][k]:.6f} / "
+                      f"{runs['cpu64'][0][k]:.6f}" for k in runs["card"][0])
+          + f" (max rel {got[0]:.2e}, gate 1e-4); parameters max abs diff "
+          f"{got[1]:.2e} ({got[2]}; gate 1e-3); BatchNorm statistics "
+          f"{got[3]:.2e} (relative above 1; gate 1e-3). The CPU in f32 "
+          f"against f64, shown: losses {cpu32[0]:.2e}, parameters "
+          f"{cpu32[1]:.2e} ({cpu32[2]}), statistics {cpu32[3]:.2e}. Step "
+          f"wall {runs['card'][2]:.2f} / {runs['cpu'][2]:.2f} / "
+          f"{runs['cpu64'][2]:.2f} s ({card})")
+    if not (got[0] <= 1e-4 and got[1] <= 1e-3 and got[3] <= 1e-3):
+        fail("fit card vs CPU outside tolerance")
+
+
+def fit_probe(torch, kernels, fit, dev, card, results):
+    """Phase 29's ``fit-probe`` line."""
+    from vn_celeb_face_recognition_tpu_torch.training.detector import (
+        probe_crop_landmarks,
+        template_landmarks,
+    )
+
+    crops, cached = fit.crops, fit.landmarks
+    n = len(crops)
+    kernels.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    got = probe_crop_landmarks(crops, device=dev)
+    probe_s = time.perf_counter() - t0
+    counts = kernels.launch_counts()
+    check_line_counts(counts, DETECT_LAUNCHES, n, "fit-probe", results)
+    cpu = probe_crop_landmarks(crops, device="cpu")
+
+    def fallbacks(pts):
+        return [i for i, (p, c) in enumerate(zip(pts, crops))
+                if np.allclose(p, template_landmarks(c.shape[0]))]
+
+    d_cache = float(np.abs(got - cached).max())
+    d_cpu = float(np.abs(got - cpu).max())
+    falls = [fallbacks(x) for x in (got, cpu, cached)]
+    phase("fit-probe", f"probe_crop_landmarks (MTCNN min_face_size 40) on "
+          f"data/'s {n} crops on the card in {probe_s:.2f} s (host clock): "
+          f"launches {({k: v for k, v in counts.items() if v})} = "
+          f"{DETECT_LAUNCHES} x {n} detect calls; points max abs diff "
+          f"{d_cache:.2e} px to meta_data/crop_landmarks.npz and {d_cpu:.2e} "
+          f"px to the CPU probe (gate 0.5); template fallbacks card / CPU / "
+          f"cache {falls} ({card})")
+    if d_cache > 0.5 or d_cpu > 0.5 or not falls[0] == falls[1] == falls[2]:
+        fail("fit-probe outside tolerance")
+
+
 def main():
     if not os.path.isdir(os.path.join(HERE, PKG)):
         fail(f"no {PKG} package beside {os.path.basename(__file__)}; run "
@@ -4755,7 +5182,12 @@ def main():
 
     # ---- 28. RetinaFace cfg_re50 through the library -----------------------
     phase_re50(torch, kernels, dev, card, results)
+    torch.cuda.empty_cache()
     lap("28")
+
+    # ---- 29. detector training ---------------------------------------------
+    phase_fit(torch, kernels, K6, dev, card, results)
+    lap("29")
 
     kernel_rows = []
     for kname, (src, replaces) in KERNEL_SOURCES.items():

@@ -44,7 +44,8 @@ def test_port_imports_without_jax_or_flax():
                 "cli.celeb_statistic", "cli.find_embedding", "native.loader",
                 "utils.io", "utils.misc", "models.fan", "cli.crop_face",
                 "cli.align_face", "cli.split_train_val",
-                "models.resnet_encoder"):
+                "models.resnet_encoder", "training.detector",
+                "training.multibox_loss", "cli.fit_detector"):
         assert f"{PKG}.{mod}" in mods
     code = (
         "import sys\n"

@@ -7,6 +7,8 @@ into the port's modules and both packages compute on the same numbers.
 ``state_dict_to_jax`` is its inverse: the port's weights as the nested
 numpy dicts of the flax layout, the form the JAX package's checkpoints
 hold, so a checkpoint the port writes is one both packages read.
+``export_state_dict`` writes a module as the torch-keyed npz of the
+vendored weights (the detector fit's output).
 
 Rules: conv kernels [kh, kw, I, O] -> weight [O, I, kh, kw]; dense
 kernels [I, O] -> weight [O, I]; BatchNorm scale/bias and batch_stats
@@ -124,3 +126,15 @@ def state_dict_to_jax(module_or_state_dict):
     if batch_stats:
         out["batch_stats"] = batch_stats
     return out
+
+
+def export_state_dict(module):
+    """A module's weights as the torch-keyed npz the JAX package's
+    ``flax_to_torch_state_dict`` writes: ``{key: float32 ndarray}``, every
+    entry of ``state_dict()`` but ``num_batches_tracked`` (flax has no
+    such counter). ``layers.load_npz`` and the JAX package's
+    ``convert_state_dict`` both read it back."""
+    return {k: np.array(v.detach().cpu().to(torch.float32).numpy(),
+                        dtype=np.float32, copy=True)
+            for k, v in module.state_dict().items()
+            if not k.endswith("num_batches_tracked")}

@@ -13,9 +13,11 @@ top ``out_cap`` faces per frame for the engine (``detect_padded``), or
 every face, up to ``keep_top_k``, as numpy lists for the host API
 (``inference``).
 
-The net takes the uint8 frames. On ``cfg_mnet``, stage 1 of the body runs
-through kernel K6 (``ops.planar_s1``), which subtracts the channel means
-itself; stages 2-3 are cuDNN convolutions. On ``cfg_re50`` the means are
+The net takes the uint8 frames. On ``cfg_mnet`` in eval mode, stage 1 of
+the body runs through kernel K6 (``ops.planar_s1``), which subtracts the
+channel means itself; in train mode (detector training,
+``training.detector``) it runs as the stage's cuDNN modules with batch
+statistics. Stages 2-3 are cuDNN convolutions. On ``cfg_re50`` the means are
 subtracted in torch and the whole trunk is cuDNN convolutions (the
 ``models.resnet_common`` Bottlenecks; the JAX package runs its re50 in
 XLA, not through its bottleneck kernel). FPN, SSH and heads are cuDNN
@@ -128,9 +130,19 @@ class MobileNetV1Body(nn.Module):
 
     def forward(self, frames, dtype):
         """frames [N, H, W, 3] uint8 -> the three NCHW stage outputs in
-        ``dtype``; stage 1 is kernel K6."""
-        s1 = mnet_stage1(self.stage1, frames, CHANNELS_SUBTRACT, dtype)
-        s1 = s1.permute(0, 3, 1, 2)
+        ``dtype``. In eval mode stage 1 is kernel K6, which folds the
+        running statistics into its weights. In train mode it is the
+        stage's own modules on the frames minus the channel means, with
+        batch statistics and running-statistic updates (K6 computes the
+        eval-mode function only, and has no backward)."""
+        if self.training:
+            sub = torch.tensor(CHANNELS_SUBTRACT, dtype=torch.float32,
+                               device=frames.device)
+            x = (frames.to(torch.float32) - sub).permute(0, 3, 1, 2)
+            s1 = self.stage1(x.to(dtype))
+        else:
+            s1 = mnet_stage1(self.stage1, frames, CHANNELS_SUBTRACT, dtype)
+            s1 = s1.permute(0, 3, 1, 2)
         s2 = self.stage2(s1)
         return s1, s2, self.stage3(s2)
 
@@ -227,12 +239,16 @@ class HeadList(nn.ModuleList):
 
 class RetinaFaceNet(nn.Module):
     """RetinaFace on ``cfg`` (``cfg_mnet`` or ``cfg_re50``): [N, H, W, 3]
-    uint8 frames -> (loc [N, A, 4], softmax conf [N, A, 2], landmarks
-    [N, A, 10]), all f32; the convolutions run in ``dtype``."""
+    uint8 frames -> (loc [N, A, 4], conf [N, A, 2], landmarks [N, A, 10]),
+    all f32; the convolutions run in ``dtype``. ``conf`` is the softmax,
+    or the raw class logits when ``phase`` is ``"train"`` (what the
+    MultiBox loss takes). BatchNorm and the mnet's stage 1 follow the
+    module's mode (``train()`` / ``eval()``), not ``phase``."""
 
-    def __init__(self, dtype=torch.float32, cfg=cfg_mnet):
+    def __init__(self, dtype=torch.float32, cfg=cfg_mnet, phase="test"):
         super().__init__()
         self.dtype = dtype
+        self.phase = phase
         c_in, c_out = cfg["in_channel"], cfg["out_channel"]
         self.body = (ResNet50Body() if cfg["name"] == "Resnet50"
                      else MobileNetV1Body())
@@ -248,7 +264,9 @@ class RetinaFaceNet(nn.Module):
         fpn = self.fpn(list(self.body(frames, self.dtype)))
         features = [self.ssh1(fpn[0]), self.ssh2(fpn[1]), self.ssh3(fpn[2])]
         loc = self.BboxHead(features)
-        conf = torch.softmax(self.ClassHead(features), dim=-1)
+        conf = self.ClassHead(features)
+        if self.phase != "train":
+            conf = torch.softmax(conf, dim=-1)
         return loc, conf, self.LandmarkHead(features)
 
 
@@ -263,8 +281,9 @@ class RetinaFace:
     torch-keyed ``.npz`` or a torch ``.pth``); without one the net is
     seeded as the JAX package inits it: lecun-normal weights, zero biases,
     identity BatchNorm (``layers.seeded_init_``, ``torch.Generator`` seed
-    0), so every build of a config holds the same weights. ``phase`` and
-    ``backbone_path`` are accepted and unused, as in the JAX package, and so is
+    0), so every build of a config holds the same weights. ``phase`` goes
+    to the net, as in the JAX package (``"train"``: raw logits as scores).
+    ``backbone_path`` is accepted and unused, and so is
     ``planar_stage1``: it chose the JAX package's stage-1 formulation, and
     here the mnet's stage 1 always runs through kernel K6 on the card. ``keep_top_k``
     caps the faces ``inference`` returns per image. ``dtype`` is the
@@ -289,7 +308,7 @@ class RetinaFace:
         self.out_cap = 16  # the engine's per-frame face capacity
         self.device = select_device(device)
         check_set_caps(self.device.type, nms_cap=self.nms_cap)
-        self.net = RetinaFaceNet(dtype, self.cfg)
+        self.net = RetinaFaceNet(dtype, self.cfg, phase)
         paths = [p for p in (weights_path, checkpoint_path) if p]
         found = [p for p in paths if os.path.exists(p)]
         if found:
@@ -325,8 +344,8 @@ class RetinaFace:
         pr = self.priors(h, w)[idx]
         scale = torch.tensor([w, h, w, h], dtype=torch.float32,
                              device=frames.device)
-        bx = B.decode_boxes(_take(loc, idx), pr, var) * scale
-        pt = B.decode_landmarks(_take(landms, idx), pr, var)
+        bx = B.decode_boxes(B.take_rows(loc, idx), pr, var) * scale
+        pt = B.decode_landmarks(B.take_rows(landms, idx), pr, var)
         pt = pt.reshape(b, -1, 5, 2) * scale[:2]
         sc = torch.gather(score, 1, idx)
         keep = B.batched_nms_keep_mask(bx, sc, still, self.nms_thres,
@@ -341,8 +360,8 @@ class RetinaFace:
         boxes, scores, points, valid = self.infer_padded(frames)
         valid = valid & (scores >= self.vis_thres)
         idx, still = B.top_k_select(scores, valid, self.out_cap)
-        return (_take(boxes, idx), torch.gather(scores, 1, idx),
-                _take(points, idx), still)
+        return (B.take_rows(boxes, idx), torch.gather(scores, 1, idx),
+                B.take_rows(points, idx), still)
 
 
     def inference(self, rgb_images, landmark=True):
@@ -374,9 +393,3 @@ class RetinaFace:
 
     def eval(self):
         return self
-
-
-def _take(a, idx):
-    """Rows ``idx`` [B, k] of a [B, N, ...] tensor."""
-    ix = idx.reshape(idx.shape + (1,) * (a.dim() - 2))
-    return torch.gather(a, 1, ix.expand(idx.shape + a.shape[2:]))

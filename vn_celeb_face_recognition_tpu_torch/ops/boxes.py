@@ -122,6 +122,12 @@ def make_priors(image_size, min_sizes, steps, clip=False):
     return np.clip(priors, 0.0, 1.0) if clip else priors
 
 
+def take_rows(a, idx):
+    """Rows ``idx`` [B, k] of a [B, N, ...] tensor -> [B, k, ...]."""
+    ix = idx.reshape(idx.shape + (1,) * (a.dim() - 2))
+    return torch.gather(a, 1, ix.expand(idx.shape + a.shape[2:]))
+
+
 def decode_boxes(loc, priors, variances):
     """SSD box offsets [..., 4] against priors (cx, cy, w, h) -> xyxy in
     [0, 1]."""
@@ -137,3 +143,87 @@ def decode_landmarks(pre, priors, variances):
     out = (priors[..., None, :2]
            + pts * variances[0] * priors[..., None, 2:])
     return out.reshape(pre.shape)
+
+
+# ---------------------------------------------------------------------------
+# Train-time matching of ground truth to priors (detector training)
+# ---------------------------------------------------------------------------
+
+
+def jaccard(boxes_a, boxes_b):
+    """Plain IoU (offset 0) between [..., N, 4] and [..., M, 4] xyxy boxes,
+    the overlap that matching ranks priors by."""
+    return pairwise_iou(boxes_a, boxes_b, offset=0.0, min_mode=False)
+
+
+def point_form(priors):
+    """(cx, cy, w, h) -> (x1, y1, x2, y2)."""
+    half = priors[..., 2:] / 2.0
+    return torch.cat([priors[..., :2] - half, priors[..., :2] + half], dim=-1)
+
+
+def encode_boxes(matched, priors, variances):
+    """SSD box encoding of matched xyxy boxes against priors (cx, cy, w,
+    h): the inverse of ``decode_boxes``."""
+    g_cxcy = (matched[..., :2] + matched[..., 2:]) / 2.0 - priors[..., :2]
+    g_cxcy = g_cxcy / (variances[0] * priors[..., 2:])
+    g_wh = (matched[..., 2:] - matched[..., :2]) / priors[..., 2:]
+    return torch.cat([g_cxcy, torch.log(g_wh) / variances[1]], dim=-1)
+
+
+def encode_landmarks(matched, priors, variances):
+    """5-point landmarks [..., 10] encoded against priors: the inverse of
+    ``decode_landmarks``."""
+    pts = matched.reshape(matched.shape[:-1] + (5, 2))
+    g = (pts - priors[..., None, :2]) / (variances[0] * priors[..., None, 2:])
+    return g.reshape(matched.shape[:-1] + (10,))
+
+
+def match_priors(truths, labels, landms, priors, variances, threshold,
+                 truths_valid=None):
+    """Assign ground truth to priors over a padded, batched GT set.
+
+    Args:
+      truths: [B, G, 4] xyxy boxes, normalised (padded rows arbitrary).
+      labels: [B, G] int (1 a face, -1 a face without landmarks).
+      landms: [B, G, 10] landmarks, normalised.
+      priors: [P, 4] (cx, cy, w, h).
+      variances: (0.1, 0.2).
+      threshold: the IoU from which a prior is a positive.
+      truths_valid: [B, G] bool, the real rows (all when None).
+
+    Returns (loc_t [B, P, 4], conf_t [B, P] int, landm_t [B, P, 10]):
+    encoded regression targets, the class of each prior (0 background)
+    and encoded landmarks. Each prior takes its best GT (ties to the
+    lower index); a GT whose best prior overlaps it by more than 0.2 also
+    claims that prior outright, and where two GT share a best prior the
+    higher GT index wins (done as a loop over G, so the order does not
+    hang on a scatter with repeated indices).
+    """
+    b, g = truths.shape[:2]
+    if truths_valid is None:
+        truths_valid = torch.ones((b, g), dtype=torch.bool,
+                                  device=truths.device)
+    overlaps = jaccard(truths, point_form(priors))  # [B, G, P]
+    overlaps = torch.where(truths_valid[..., None], overlaps,
+                           torch.full_like(overlaps, -1.0))
+    best_prior_idx = torch.argmax(overlaps, dim=2)             # [B, G]
+    best_prior_overlap = torch.amax(overlaps, dim=2)           # [B, G]
+    best_truth_overlap = torch.amax(overlaps, dim=1)           # [B, P]
+    best_truth_idx = torch.argmax(overlaps, dim=1)             # [B, P]
+    gt_keep = truths_valid & (best_prior_overlap > 0.2)
+    prior_ids = torch.arange(priors.shape[0], device=truths.device)
+    for j in range(g):
+        hit = (prior_ids == best_prior_idx[:, j:j + 1]) & gt_keep[:, j:j + 1]
+        best_truth_overlap = torch.where(
+            hit, torch.full_like(best_truth_overlap, 2.0), best_truth_overlap)
+        best_truth_idx = torch.where(
+            hit, torch.full_like(best_truth_idx, j), best_truth_idx)
+    conf = torch.gather(labels, 1, best_truth_idx)
+    conf = torch.where(best_truth_overlap < threshold,
+                       torch.zeros_like(conf), conf)
+    loc_t = encode_boxes(take_rows(truths, best_truth_idx), priors,
+                         variances)
+    landm_t = encode_landmarks(take_rows(landms, best_truth_idx), priors,
+                               variances)
+    return loc_t, conf, landm_t

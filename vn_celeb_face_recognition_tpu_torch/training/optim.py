@@ -14,7 +14,16 @@ reproduces torch's optimizers in optax; here they are torch's own:
   JAX trainer passes the current rate as the base to its ``MultiStepLR``
   every epoch, so there the rate shrinks by ``gamma`` every epoch after
   the first milestone; the port does not reproduce that.
+* ``make_adamw_cosine(params, lr, steps, ...)``: the detector fit's
+  ``optax.adamw(optax.cosine_decay_schedule(lr, steps, alpha),
+  weight_decay)``. optax adds ``wd * p`` to the Adam direction computed
+  from the old ``p``; ``torch.optim.AdamW`` first scales ``p`` by ``1 - lr
+  wd`` and then takes the Adam step: the same update. The rate follows
+  optax's closed form through ``LambdaLR`` (step 0 at ``t = 0``), stepped
+  once after every optimizer step.
 """
+
+import math
 
 import torch
 
@@ -66,3 +75,24 @@ def set_current_lr(optimizer, lr):
     for group in optimizer.param_groups:
         group["lr"] = float(lr)
     return optimizer
+
+
+def cosine_decay(t, steps, alpha):
+    """optax's ``cosine_decay_schedule`` factor at step ``t``: ``(1 -
+    alpha) * 0.5 * (1 + cos(pi * min(t, steps) / steps)) + alpha``."""
+    t = min(t, steps)
+    return (1.0 - alpha) * 0.5 * (1.0 + math.cos(math.pi * t / steps)) + alpha
+
+
+def make_adamw_cosine(params, lr, steps, alpha=0.01, weight_decay=5e-4,
+                      betas=(0.9, 0.999), eps=1e-8):
+    """(``torch.optim.AdamW``, ``LambdaLR``) for ``steps`` steps from
+    ``lr`` down to ``alpha * lr``; call ``scheduler.step()`` after each
+    ``optimizer.step()``. The foreach implementation is asked for by name:
+    its in-place writes bump each parameter's version, which
+    ``utils.kernels.cached_fold`` keys on (the fused one's do not)."""
+    optimizer = torch.optim.AdamW(params, lr=lr, betas=betas, eps=eps,
+                                  weight_decay=weight_decay, foreach=True)
+    scheduler = torch.optim.lr_scheduler.LambdaLR(
+        optimizer, lambda t: cosine_decay(t, steps, alpha))
+    return optimizer, scheduler

@@ -6,6 +6,7 @@ and ``build_frames`` (a mirror of ``bench.build_frames``: real face crops
 pasted on a flat background).
 """
 
+import functools
 import glob
 import os
 import struct
@@ -188,14 +189,17 @@ def _bicubic(x):
         np.where(x < 2.0, (((x - 5.0) * x + 8.0) * x - 4.0) * a, 0.0))
 
 
-def _resample_matrix(in_size, out_size, filt, support):
-    """[out, in] int64 fixed-point coefficients, as PIL computes them
-    (the filter's support scaled by the reduction factor, normalised per
-    output, rounded to 22 fractional bits)."""
+@functools.lru_cache(maxsize=1024)
+def _resample_taps(in_size, out_size, filt, support):
+    """(first [out], coefficients [out, taps]) of each output pixel, as PIL
+    computes them: the filter's support scaled by the reduction factor,
+    normalised per output, rounded to 22 fractional bits (int64; a row's
+    unused taps are 0). Output ``o`` reads input pixels ``first[o] +
+    t``. Cached; do not write to the result."""
     scale = in_size / out_size
     filterscale = max(scale, 1.0)
     support = support * filterscale
-    mat = np.zeros((out_size, in_size), dtype=np.int64)
+    rows = []
     for xx in range(out_size):
         center = (xx + 0.5) * scale
         xmin = max(int(center - support + 0.5), 0)
@@ -206,9 +210,20 @@ def _resample_matrix(in_size, out_size, filt, support):
         if ww != 0.0:
             k = k / ww
         fixed = k * (1 << _PRECISION_BITS)
-        mat[xx, xmin:xmax] = np.where(fixed < 0, np.trunc(fixed - 0.5),
-                                      np.trunc(fixed + 0.5)).astype(np.int64)
-    return mat
+        rows.append((xmin, np.where(fixed < 0, np.trunc(fixed - 0.5),
+                                    np.trunc(fixed + 0.5)).astype(np.int64)))
+    taps = max(len(k) for _, k in rows)  # <= in_size
+    first = np.empty(out_size, dtype=np.int64)
+    coef = np.zeros((out_size, taps), dtype=np.int64)
+    for xx, (x0, k) in enumerate(rows):
+        # a window at the right edge starts earlier, so that every tap
+        # reads a pixel; its coefficients move right by as much
+        first[xx] = min(x0, in_size - taps)
+        shift = x0 - first[xx]
+        coef[xx, shift:shift + len(k)] = k
+    for a in (first, coef):
+        a.setflags(write=False)
+    return first, coef
 
 
 def _clip8(acc):
@@ -216,16 +231,27 @@ def _clip8(acc):
     return np.clip(acc, 0, 255).astype(np.uint8)
 
 
+def _resample_rows(x, out_size, filt, support):
+    """Resample axis 0 of ``x`` [n, ...] uint8 to ``out_size``: each output
+    row is the int64 sum of its taps' rows times their coefficients (exact,
+    as PIL's 32-bit accumulators are for 8-bit input), rounded to 8 bits."""
+    first, coef = _resample_taps(x.shape[0], out_size, filt, support)
+    acc = np.zeros((out_size,) + x.shape[1:], dtype=np.int64)
+    c = coef.reshape(coef.shape + (1,) * (x.ndim - 1))
+    for t in range(coef.shape[1]):
+        acc += c[:, t] * x[first + t]
+    return _clip8(acc)
+
+
 def _resize(img, size, filt, support):
     out_w, out_h = size
     x = img
     if out_w != x.shape[1]:
-        m = _resample_matrix(x.shape[1], out_w, filt, support)
-        x = _clip8(np.einsum("ow,hwc->hoc", m, x.astype(np.int64)))
+        x = _resample_rows(x.transpose(1, 0, 2), out_w, filt,
+                           support).transpose(1, 0, 2)
     if out_h != x.shape[0]:
-        m = _resample_matrix(x.shape[0], out_h, filt, support)
-        x = _clip8(np.einsum("oh,hwc->owc", m, x.astype(np.int64)))
-    return x
+        x = _resample_rows(x, out_h, filt, support)
+    return np.ascontiguousarray(x)
 
 
 def resize_bicubic(img, size):

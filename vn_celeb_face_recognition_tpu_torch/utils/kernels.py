@@ -204,6 +204,13 @@ def cached_fold(modules, tag, fold):
     return hit[1]
 
 
+def forget_folds(module):
+    """Drop every cached fold held by ``module`` and its submodules, for
+    writes that do not bump a tensor's version (a fused optimizer's)."""
+    for m in module.modules():
+        m.__dict__.pop("_kernel_folds", None)
+
+
 def check_cuda(err, name):
     """Raise when a C entry point reports a CUDA error."""
     if err != 0:
