@@ -191,6 +191,21 @@ Phases, one line of output each (a failed phase exits non-zero):
       1e-3), the CPU's f32 step shown; fit-probe, probe_crop_landmarks
       on the 20 crops, K2-K5 exact per detect call, points within 0.5 px
       of the vendored cache and of the CPU probe.
+  30. parallel: ``parallel.launch(n_devices=1, device="cuda")`` starts one
+      process in a one-rank NCCL group (the card machine has one H100, and
+      NCCL puts no two ranks of a communicator on one card), which runs
+      every mesh code path on a (1, 1) mesh: parallel-train, two
+      ``make_dp_train_step`` online-aug steps at
+      ``__graft_entry__.dryrun_multichip``'s shapes (InceptionResnetV1 f32
+      at 96 px, frozen; MLP 512-2048-16 with dropout 0.5; Adam; 8 images)
+      against the same steps without a mesh (losses and weights within
+      rtol 1e-5); parallel-engine, a chunk of the default line (64 frames
+      of 640 px, MTCNN, InceptionResnetV1 and MLP 1001 in bf16, the face_cap
+      buckets) through the engine on the data mesh against the same engine
+      without one (equal valid slots and predictions, boxes within 1e-4
+      px, embedding cosine >= 0.9999, launches K2 1, K3 4, K4 4, K5 2, K1 1
+      in the mesh chunk), ms a chunk both ways (median of 3); the NCCL
+      version and the time the launch took to reach the function.
 
 Kernel phases check bf16 at the lines' shapes and f32 on a slice of
 them; exact kernels (K3, K4) are held with torch.equal. Every kernel is
@@ -4758,6 +4773,177 @@ def fit_probe(torch, kernels, fit, dev, card, results):
         fail("fit-probe outside tolerance")
 
 
+def parallel_rank():
+    """Phase 30 inside the one-rank NCCL group ``parallel.launch`` started
+    (a process of its own: it builds its models and reads its own launch
+    counters). Returns its numbers; the caller checks the gates."""
+    t_enter = time.time()
+    import torch
+    import torch.distributed as dist
+
+    from vn_celeb_face_recognition_tpu_torch.data.transforms import (
+        transform_default,
+    )
+    from vn_celeb_face_recognition_tpu_torch.models import MLPModel
+    from vn_celeb_face_recognition_tpu_torch.models.inception_resnet_v1 import (  # noqa: E501
+        InceptionResnetV1,
+    )
+    from vn_celeb_face_recognition_tpu_torch.models.layers import seeded_init_
+    from vn_celeb_face_recognition_tpu_torch.models.mtcnn import MTCNN
+    from vn_celeb_face_recognition_tpu_torch.parallel import (
+        make_dp_train_step,
+        make_mesh,
+    )
+    from vn_celeb_face_recognition_tpu_torch.pipeline.engine import (
+        FusedRecognitionEngine,
+    )
+    from vn_celeb_face_recognition_tpu_torch.training.optim import (
+        make_optimizer,
+    )
+    from vn_celeb_face_recognition_tpu_torch.utils import kernels
+    from vn_celeb_face_recognition_tpu_torch.utils.frames import build_frames
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    mesh = make_mesh(device="cuda")
+    dev = mesh.device
+    out = {"t_enter": t_enter, "backend": dist.get_backend(),
+           "world": dist.get_world_size(), "device": str(dev),
+           "nccl": ".".join(str(v) for v in torch.cuda.nccl.version())}
+
+    # ---- the DP x TP online-aug step at dryrun_multichip's shapes --------
+    gen = np.random.default_rng(0)
+    batch = {"data": gen.integers(0, 255, size=(8, 96, 96, 3)).astype(
+                 np.float32),
+             "target": gen.integers(0, 16, size=8).astype(np.int64),
+             "weight": np.ones(8, dtype=np.float32)}
+    steps = {}
+    for name, m in (("plain", None), ("mesh", mesh)):
+        g = torch.Generator().manual_seed(0)
+        enc = seeded_init_(InceptionResnetV1(), g).to(dev).eval()
+        enc.requires_grad_(False)
+        mlp = seeded_init_(MLPModel(512, 16), g).to(dev)
+        opt = make_optimizer("Adam", {"lr": 1e-3, "weight_decay": 1e-4},
+                             mlp.parameters())
+        step, place_state, place_batch = make_dp_train_step(
+            m, mlp, opt, encoder=enc, transform=transform_default)
+        place_state(mlp, opt)
+        placed = place_batch({k: torch.from_numpy(v).to(dev)
+                              for k, v in batch.items()})
+        draw = torch.Generator(device=dev).manual_seed(1)
+        losses, ms = [], []
+        for _ in range(2):  # the first warms cuDNN up
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            loss, metrics = step(placed, draw)
+            losses.append(float(loss))
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+        steps[name] = (losses, [p.detach().clone() for p in mlp.parameters()],
+                       ms)
+    (pl, pw, pms), (ml, mw, mms) = steps["plain"], steps["mesh"]
+    out["train"] = {
+        "losses": ml, "plain_losses": pl, "ms": mms[1], "plain_ms": pms[1],
+        "loss_rel": max(abs(a - b) / abs(b) for a, b in zip(ml, pl)),
+        "weights_close": all(torch.allclose(a, b, rtol=1e-5, atol=1e-7)
+                             for a, b in zip(mw, pw)),
+        "weights_max_diff": max(float((a - b).abs().max())
+                                for a, b in zip(mw, pw))}
+    del steps
+
+    # ---- one chunk of the default line through the data mesh -----------
+    det = MTCNN(dtype=torch.bfloat16, device=dev, **DETECTOR)
+    g = torch.Generator().manual_seed(0)
+    enc = seeded_init_(InceptionResnetV1(dtype=torch.bfloat16), g)
+    clf = seeded_init_(MLPModel(512, N_CLASSES), g)
+    frames = torch.from_numpy(build_frames(BATCH, SIZE, FACES_PER_FRAME)).to(
+        dev)
+    names = {label: f"celeb_{label}" for label in range(N_CLASSES)}
+    engines = {m: FusedRecognitionEngine(
+        det, enc, clf, target_fs=112, compute_dtype=torch.bfloat16,
+        face_cap=FACE_BUCKETS, face_hint=BATCH * FACES_PER_FRAME,
+        mesh=None if m == "plain" else mesh) for m in ("plain", "mesh")}
+    outs, times, runs = {}, {"plain": [], "mesh": []}, [0]
+    for m, engine in engines.items():  # warm-up
+        engine.identify(engine.process_adaptive(frames), names, 0.5)
+    process = engines["mesh"].process
+
+    def counted(chunk):
+        runs[0] += 1
+        return process(chunk)
+
+    engines["mesh"].process = counted
+    for m in ("plain", "mesh", "mesh", "plain", "plain", "mesh"):
+        engine = engines[m]
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        runs[0] = 0
+        t0 = time.perf_counter()
+        res = engine.process_adaptive(frames)
+        engine.identify(res, names, 0.5)
+        torch.cuda.synchronize()
+        times[m].append((time.perf_counter() - t0) * 1e3)
+        if m not in outs:
+            outs[m] = (res, kernels.launch_counts(), runs[0])
+    (p, _, _), (q, counts, n_runs) = outs["plain"], outs["mesh"]
+    v = p["valid"]
+    e, r = q["embeddings"][v].float(), p["embeddings"][v].float()
+    cos = (e * r).sum(-1) / (e.norm(dim=-1) * r.norm(dim=-1))
+    out["engine"] = {
+        "valid_equal": bool(torch.equal(q["valid"], v)),
+        "pred_equal": bool(torch.equal(q["pred"][v], p["pred"][v])),
+        "box_err": float((q["boxes"][v] - p["boxes"][v]).abs().max()),
+        "cos_min": float(cos.min()), "faces": int(v.sum()),
+        "bucket": q["_face_cap_used"], "counts": counts, "runs": n_runs,
+        "ms": sorted(times["mesh"])[1], "plain_ms": sorted(times["plain"])[1]}
+    return out
+
+
+def phase_parallel(torch, card):
+    """Phase 30: ``parallel_rank`` under ``parallel.launch(n_devices=1,
+    device="cuda")``, its gates and its lines."""
+    from vn_celeb_face_recognition_tpu_torch.parallel import launch
+
+    t0 = time.time()
+    r = launch(parallel_rank, 1, "cuda", timeout=300)
+    wall = time.time() - t0
+    if r["backend"] != "nccl" or r["world"] != 1:
+        fail(f"parallel: expected a one-rank NCCL group, got {r['backend']} "
+             f"world {r['world']}")
+    phase("parallel", f"parallel.launch(n_devices=1, device='cuda'): one "
+          f"rank, {r['backend']} (NCCL {r['nccl']}) on {r['device']}; the "
+          f"function started {r['t_enter'] - t0:.1f} s after the launch "
+          f"call (spawn, imports, group init), the launch took {wall:.1f} s "
+          f"({card})")
+    t = r["train"]
+    phase("parallel-train", f"make_dp_train_step on the (1, 1) mesh, "
+          f"InceptionResnetV1 f32 96 px frozen + MLP 16 (dropout 0.5, Adam), "
+          f"8 images: losses {t['losses']} against {t['plain_losses']} "
+          f"without the mesh (max rel diff {t['loss_rel']:.2e}), weights max "
+          f"diff {t['weights_max_diff']:.2e}; the second step "
+          f"{t['ms']:.2f} ms on the mesh, {t['plain_ms']:.2f} ms without "
+          f"(host clock, synchronised; {card})")
+    if t["loss_rel"] > 1e-5 or not t["weights_close"]:
+        fail("parallel-train: the mesh step differs from the plain step")
+    e = r["engine"]
+    want = {k: MTCNN_LINE_LAUNCHES.get(k, 0) * e["runs"]
+            for k in e["counts"]}
+    phase("parallel-engine", f"the default line's chunk ({BATCH}x{SIZE}x"
+          f"{SIZE}, bf16, bucket {e['bucket']}, {e['faces']} valid faces) "
+          f"on the data mesh against the engine without one: valid equal "
+          f"{e['valid_equal']}, predictions equal {e['pred_equal']}, boxes "
+          f"max diff {e['box_err']:.2e} px, embedding cosine min "
+          f"{e['cos_min']:.6f}; launches {e['counts']} in {e['runs']} "
+          f"process run(s) of the mesh chunk; median of 3 chunks "
+          f"(host clock incl. identify) {e['ms']:.2f} ms on the mesh, "
+          f"{e['plain_ms']:.2f} ms without ({card})")
+    if not (e["valid_equal"] and e["pred_equal"]) or e["box_err"] > 1e-4 \
+            or e["cos_min"] < 0.9999:
+        fail("parallel-engine: the mesh chunk differs from the plain chunk")
+    if e["counts"] != want:
+        fail(f"parallel-engine: launches {e['counts']}, want {want}")
+
+
 def main():
     if not os.path.isdir(os.path.join(HERE, PKG)):
         fail(f"no {PKG} package beside {os.path.basename(__file__)}; run "
@@ -5187,7 +5373,12 @@ def main():
 
     # ---- 29. detector training ---------------------------------------------
     phase_fit(torch, kernels, K6, dev, card, results)
+    torch.cuda.empty_cache()
     lap("29")
+
+    # ---- 30. the mesh on a one-rank NCCL group -----------------------------
+    phase_parallel(torch, card)
+    lap("30")
 
     kernel_rows = []
     for kname, (src, replaces) in KERNEL_SOURCES.items():

@@ -45,7 +45,9 @@ def test_port_imports_without_jax_or_flax():
                 "utils.io", "utils.misc", "models.fan", "cli.crop_face",
                 "cli.align_face", "cli.split_train_val",
                 "models.resnet_encoder", "training.detector",
-                "training.multibox_loss", "cli.fit_detector"):
+                "training.multibox_loss", "cli.fit_detector", "parallel",
+                "parallel.mesh", "parallel.launch", "parallel.collectives",
+                "parallel.train_dp", "utils.blocks"):
         assert f"{PKG}.{mod}" in mods
     code = (
         "import sys\n"

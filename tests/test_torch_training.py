@@ -800,7 +800,9 @@ def test_aug_trainer_facenet_aug_learns_with_frozen_encoder(face_dataset,
     """With facenet_aug on the CPU (K1's plain version, no launch), the
     training loss falls over 8 epochs; the encoder's weights are unchanged
     and no gradient reaches them; resnet101 (chosen_idx_enc 1) builds the
-    frozen SE-IR encoder; more than one device raises."""
+    frozen SE-IR encoder; more than one device outside a process group
+    that ``parallel.launch`` started raises (it builds a mesh of the
+    launched processes; tests/test_torch_parallel.py runs it)."""
     enc = seeded_init_(IResNet((1, 1, 1, 1)), torch.Generator().manual_seed(3))
     w0 = {k: v.clone() for k, v in enc.state_dict().items()}
     mlp = build_model("MLPModel", input_dim=512, num_classes=4,
@@ -827,7 +829,7 @@ def test_aug_trainer_facenet_aug_learns_with_frozen_encoder(face_dataset,
     assert not any(p.requires_grad for p in se.parameters())
     cfg["trainer"]["chosen_idx_enc"] = 2
     cfg["trainer"]["n_devices"] = 2
-    with pytest.raises(NotImplementedError, match="A.8"):
+    with pytest.raises(RuntimeError, match="parallel.launch"):
         PAug(cfg, mlp, device="cpu", encoder=enc)
 
 

@@ -28,6 +28,7 @@ import csv
 import math
 import os
 
+from ..parallel.launch import resolve_devices
 from ..pipeline import center_point_dict
 from ..utils.device import select_device
 from ..utils.io import read_json, write_json
@@ -216,7 +217,10 @@ def main(argv=None):
 
     if not os.path.exists(args.output_tracker):
         print("Create tracker file {}".format(args.output_tracker))
-        models = setup_models(args)
+        sharded = args.fused_engine and resolve_devices(
+            args.n_devices, args.device) > 1
+        # a sharded run builds its models in each of its processes
+        models = None if sharded else setup_models(args)
         target_fs = (args.target_face_size, args.target_face_size)
         center_point = center_point_dict[str(target_fs)]
         process_video(args, models, target_fs, center_point, threshold,

@@ -18,6 +18,13 @@ RGB. A chunk runs through the recognition library (K1-K8 by
 detector), or with ``--fused_engine`` through ``FusedRecognitionEngine``
 (MTCNN only). ``-sfr`` and ``-ov`` need cv2, and so does reading where
 the IO runtime does not build.
+
+``--n_devices N`` (with ``--fused_engine``; 0 means every visible card)
+shards each chunk over N processes started by ``parallel.launch``, one a
+card (NCCL), or gloo processes with ``-dv cpu``: rank 0 reads the video and
+broadcasts each chunk, then an end-of-stream message, over the data axis;
+every rank runs its block of the chunk through the sharded engine; rank 0
+alone identifies, draws and writes ``tracker.csv``.
 """
 
 import contextlib
@@ -31,6 +38,8 @@ from collections import deque
 from pathlib import Path
 
 import numpy as np
+import torch
+import torch.distributed as dist
 
 from ..models import coerce_dtype
 from ..models.mtcnn import MTCNN
@@ -44,6 +53,8 @@ from ..pipeline import (
     sequential_detect_and_align,
     write_image,
 )
+from ..parallel import launch, make_mesh
+from ..parallel.launch import resolve_devices
 from ..pipeline.engine import FusedRecognitionEngine
 from ..utils.device import select_device
 from ..utils.io import append_log_to_file
@@ -206,19 +217,18 @@ def _face_cap_arg(value):
     return parts[0] if len(parts) == 1 else parts
 
 
-def _one_device(n_devices):
-    if int(n_devices) != 1:
-        raise SystemExit(
-            f"--n_devices {n_devices}: the port runs each chunk on one card;"
-            " the data-parallel mesh is not ported yet (ROADMAP.md, A.8)")
-
-
 def build_fused_engine(models, target_fs, emotion_topk=6, face_cap=None,
-                       compute_dtype=None, n_devices=1):
+                       compute_dtype=None, n_devices=1, mesh=None):
     """The fused chunk engine over the loaded models (MTCNN only, as the
     JAX CLI's engine), on the detector's device. The emotion model, when
-    loaded, runs inside the engine on its 112 px faces."""
-    _one_device(n_devices)
+    loaded, runs inside the engine on its 112 px faces. ``mesh`` shards
+    each chunk over its data axis; ``n_devices`` other than 1 needs one
+    (``process_video`` launches the processes and builds it)."""
+    if mesh is None and int(n_devices) != 1:
+        raise SystemExit(
+            f"--n_devices {n_devices}: the sharded engine runs one process a "
+            "device under parallel.launch, with the mesh it builds there "
+            "(process_video does both)")
     (_, detection_md, emb_model, classify_model, emt_model, _) = models
     if not isinstance(detection_md, MTCNN):
         raise SystemExit(
@@ -230,7 +240,7 @@ def build_fused_engine(models, target_fs, emotion_topk=6, face_cap=None,
         target_fs=target_fs[0], face_cap=face_cap,
         compute_dtype=coerce_dtype(compute_dtype),
         emotion=None if emt_model is None else emt_model.module,
-        emotion_topk=emotion_topk,
+        emotion_topk=emotion_topk, mesh=mesh,
     )
 
 
@@ -284,25 +294,82 @@ def save_recognized_frames(output_frame, frames, infos, bth_names, bth_boxes,
                                  "frame_{}.png".format(infos[idx][1])), img)
 
 
+def broadcast_chunks(chunks, mesh):
+    """Rank 0's chunks on every rank of the mesh's data axis: yields
+    (frames, infos, chunk), where ``chunk`` is the stacked uint8 frames on
+    the mesh's device (every rank) and ``frames``/``infos`` are the
+    chunk's frames and infos on rank 0 (None elsewhere). Rank 0 sends a
+    header (more, B, H, W) then the frames for each chunk, and a header
+    with more = 0 at the end, so every rank leaves the loop together."""
+    group, dev = mesh.data_group, mesh.device
+    main = mesh.rank == 0
+    it = iter(chunks) if main else None
+    while True:
+        head = torch.zeros(4, dtype=torch.int64, device=dev)
+        item = next(it, None) if main else None
+        if item is not None:
+            chunk = torch.from_numpy(np.stack(item[0])).to(dev)
+            head[0] = 1
+            head[1:] = torch.tensor(chunk.shape[:3])
+        dist.broadcast(head, src=0, group=group)
+        if not int(head[0]):
+            return
+        if not main:
+            chunk = torch.empty(tuple(head[1:].tolist()) + (3,),
+                                dtype=torch.uint8, device=dev)
+        dist.broadcast(chunk, src=0, group=group)
+        yield (item[0], item[1], chunk) if main else (None, None, chunk)
+
+
+def video_rank(args, target_fs, center_point, threshold, frame_idxes,
+               track_bbox, chunks):
+    """One process of a sharded ``process_video``: the data mesh over all
+    processes, the models, then the frame loop."""
+    mesh = make_mesh(device=args.device)
+    models = setup_models(args)
+    return process_video(args, models, target_fs, center_point, threshold,
+                         frame_idxes, track_bbox, chunks, mesh=mesh)
+
+
 def process_video(args, models, target_fs, center_point, threshold,
-                  frame_idxes=None, track_bbox=True, chunks=None):
+                  frame_idxes=None, track_bbox=True, chunks=None, mesh=None):
     """The shared frame loop of the video and statistic CLIs. ``chunks``
     (an iterable of (frames, infos), as ``chunk_frames`` yields) defaults
     to ``frame_chunks(args.video_path, ...)``. Writes ``args.output_tracker``
-    and returns (processed frames, wall seconds)."""
+    and returns (processed frames, wall seconds).
+
+    ``--n_devices`` other than 1 needs ``--fused_engine``; when it asks for
+    more than one process (0: every visible card) and no ``mesh`` is
+    given, the loop runs under ``parallel.launch`` (``models`` may then be
+    None: each process builds its own with ``setup_models``) and rank 0's
+    result is returned."""
+    n_devices = int(getattr(args, "n_devices", 1))
+    fused = getattr(args, "fused_engine", False)
+    if n_devices != 1 and not fused:
+        # 0 and > 1 act only through the sharded fused engine
+        raise SystemExit("--n_devices requires --fused_engine (the "
+                         "per-stage path runs single-device)")
+    if mesh is None and n_devices != 1:
+        n = resolve_devices(n_devices, args.device)
+        if n > 1:
+            return launch(video_rank, n, torch.device(args.device).type,
+                          args, target_fs, center_point, threshold,
+                          frame_idxes, track_bbox,
+                          None if chunks is None else list(chunks))
     (label2name, detection_md, emb_model, classify_model, emt_model,
      idx2etag) = models
-    _one_device(getattr(args, "n_devices", 1))
+    main = mesh is None or mesh.rank == 0
 
     engine = None
-    if getattr(args, "fused_engine", False):
+    if fused:
         engine = build_fused_engine(
             models, target_fs, args.topk_emotions,
             face_cap=getattr(args, "face_cap", None),
             compute_dtype=getattr(args, "compute_dtype", None),
+            mesh=mesh,
         )
 
-    if not os.path.exists(args.output_frame):
+    if main and not os.path.exists(args.output_frame):
         os.makedirs(args.output_frame)
 
     box_requirements = None
@@ -320,18 +387,26 @@ def process_video(args, models, target_fs, center_point, threshold,
         df_columns.append("Bboxes")
     if args.recog_emotion:
         df_columns.append("Emotion")
-    with open(args.output_tracker, "w") as tracker_file:
-        tracker_file.write("")
-    append_log_to_file(args.output_tracker, df_columns)
+    if main:
+        with open(args.output_tracker, "w") as tracker_file:
+            tracker_file.write("")
+        append_log_to_file(args.output_tracker, df_columns)
 
-    if chunks is None:
+    if chunks is None and main:
         chunks = frame_chunks(args.video_path, args.n_frames, frame_idxes)
+    if mesh is None:
+        stream = ((f, i, None) for f, i in chunks)
+    else:
+        stream = broadcast_chunks(chunks, mesh)
     map_func = (np.vectorize(lambda x: idx2etag[x]) if args.recog_emotion
                 else None)
     processed_frame = 0
     timer = StageTimer()
     start_time = time.time()
-    for frames_queue, frames_info in chunks:
+    for frames_queue, frames_info, chunk in stream:
+        if not main:
+            engine.observe(engine.process_adaptive(chunk))
+            continue
         processed_frame += len(frames_queue)
         if processed_frame % args.log_step == 0:
             hms = convert_sec_to_max_time_quantity(frames_info[-1][0])
@@ -344,7 +419,8 @@ def process_video(args, models, target_fs, center_point, threshold,
         bth_emotions = bth_emotion_probs = None
         if engine is not None:
             with timer.stage("fused_engine"):
-                outputs = engine.process_adaptive(np.stack(frames_queue))
+                outputs = engine.process_adaptive(
+                    np.stack(frames_queue) if chunk is None else chunk)
                 results = engine.identify(outputs, label2name, threshold)
             bth_names = [r[0] for r in results]
             bth_chosen_boxes = [r[1] for r in results]
@@ -394,6 +470,8 @@ def process_video(args, models, target_fs, center_point, threshold,
             tracker_file.write("".join(logged_rows))
 
     wall = time.time() - start_time
+    if not main:
+        return processed_frame, wall
     print("Saved tracker file in {} ...".format(args.output_tracker))
     print(
         "FPS for recognition face: {}".format(int(processed_frame / wall))
@@ -427,8 +505,9 @@ def build_arg_parser():
                         "bucket covering the last chunk's face count and "
                         "re-runs at the next bucket on overflow")
     p.add_argument("--n_devices", default=1, type=int,
-                   help="cards to shard each chunk over; the port runs one "
-                        "(any other value raises)")
+                   help="shard each fused-engine chunk over N processes, "
+                        "one a card (0 = every visible card; requires "
+                        "--fused_engine); with -dv cpu, N gloo processes")
     p.add_argument("-of", "--output_frame", default="output_frame",
                    type=str)
     return p
@@ -442,7 +521,10 @@ def main(argv=None):
         args.video_path = args.image_path  # -i works like the reference
 
     select_device(args.device)
-    models = setup_models(args)
+    sharded = args.fused_engine and resolve_devices(
+        args.n_devices, args.device) > 1
+    # a sharded run builds its models in each of its processes
+    models = None if sharded else setup_models(args)
     target_fs = (args.target_face_size, args.target_face_size)
     center_point = center_point_dict[str(target_fs)]
     process_video(args, models, target_fs, center_point,

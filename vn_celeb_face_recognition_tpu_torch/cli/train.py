@@ -11,6 +11,12 @@ raises. A config's ``"device": "TPU"`` (or ``"GPU"``, ``"cuda"``) names the
 accelerator, here the card; ``"CPU"`` the CPU; ``-d`` overrides it.
 Model weights that the config asks for load from local files as
 ``models.build_model`` finds them; without them the weights are seeded.
+
+With ``trainer.n_devices`` > 1 the run is data parallel: ``parallel.launch``
+starts that many processes (NCCL on cards, one card each; gloo processes
+with ``-d CPU``), each builds the trainer, which joins them in a data mesh,
+and rank 0 logs and writes the checkpoints. ``main`` then returns rank 0's
+``{"save_dir": ..., "log_dir": ...}``.
 """
 
 import argparse
@@ -18,6 +24,7 @@ import argparse
 from .. import models as model_md
 from .. import registry
 from ..data import DataLoader
+from ..parallel import launch
 from ..utils.device import select_device
 from ..utils.io import read_json
 
@@ -69,8 +76,21 @@ def parse(argv=None):
                                  or config["trainer"].get("device"))
 
 
+def train_rank(config, device):
+    """One process of a data-parallel run: build, train; the run's
+    directories."""
+    trainer, _, _ = build_trainer_from_config(config, device=device)
+    trainer.train(config["trainer"]["track4plot"])
+    return {"save_dir": str(trainer.save_dir),
+            "log_dir": str(trainer.log_dir)}
+
+
 def main(argv=None):
     config, device = parse(argv)
+    n_devices = int(config["trainer"].get("n_devices", 1))
+    if n_devices > 1:
+        return launch(train_rank, n_devices, device.type, config,
+                      device.type)
     trainer, _, _ = build_trainer_from_config(config, device=device)
     trainer.train(config["trainer"]["track4plot"])
     return trainer

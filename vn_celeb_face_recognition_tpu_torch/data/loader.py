@@ -8,6 +8,12 @@ its ``path`` list ('' for padding). Losses and metrics are
 weight-averaged, so padding changes no result, and every batch has one
 shape.
 
+Under a data-parallel mesh (``set_block``) a process reads only its block
+of each global batch: the rows ``index * bs / count`` up to the next
+block's, in the one seeded order, padded as the global batch is. So the
+blocks of all processes make up the one-process batch, and no process
+decodes another's rows.
+
 ``prefetch_to_device`` moves the batches' arrays to the device in a
 background thread, a few batches ahead of the consumer: on a card from
 pinned host memory with ``non_blocking`` copies on a side stream, which
@@ -29,6 +35,7 @@ class DataLoader:
         self.shuffle = shuffle
         self.drop_last = drop_last
         self._rng = np.random.default_rng(seed)
+        self._block = (0, 1)
         # num_workers is accepted for config compatibility; reading runs
         # in prefetch_to_device's thread
 
@@ -45,28 +52,39 @@ class DataLoader:
     def set_rng_state(self, state):
         self._rng.bit_generator.state = state
 
+    def set_block(self, index, count):
+        """Yield block ``index`` of ``count`` equal blocks of each global
+        batch (the batch size must split evenly)."""
+        if self.batch_size % count:
+            raise ValueError(f"batch size {self.batch_size} does not split "
+                             f"into {count} data blocks")
+        self._block = (int(index), int(count))
+
     def __iter__(self):
         n = len(self.dataset)
         order = np.arange(n)
         if self.shuffle:
             self._rng.shuffle(order)
         bs = self.batch_size
+        index, count = self._block
+        rows = bs // count
         for b in range(len(self)):
-            idx = order[b * bs:(b + 1) * bs]
+            idx = order[b * bs:(b + 1) * bs][index * rows:(index + 1) * rows]
             samples = [self.dataset[int(i)] for i in idx]
-            data = np.stack([s[0] for s in samples])
-            target = np.asarray([s[1] for s in samples], dtype=np.int32)
-            paths = [s[2] for s in samples]
-            weight = np.ones(len(samples), dtype=np.float32)
-            pad = bs - len(samples)
+            pad = rows - len(samples)
             if pad > 0:
-                data = np.concatenate(
-                    [data, np.repeat(data[:1], pad, axis=0)], axis=0)
-                target = np.concatenate(
-                    [target, np.zeros(pad, dtype=np.int32)])
-                weight = np.concatenate(
-                    [weight, np.zeros(pad, dtype=np.float32)])
-                paths = paths + [""] * pad
+                # padding copies the global batch's first sample (block 0
+                # holds it; another block reads it once)
+                first = (samples[0] if index == 0
+                         else self.dataset[int(order[b * bs])])
+                samples = samples + [first] * pad
+            data = np.stack([s[0] for s in samples])
+            real = len(samples) - pad
+            target = np.asarray([s[1] for s in samples[:real]] + [0] * pad,
+                                dtype=np.int32)
+            weight = np.asarray([1.0] * real + [0.0] * pad,
+                                dtype=np.float32)
+            paths = [s[2] for s in samples[:real]] + [""] * pad
             yield {"data": data, "target": target, "weight": weight,
                    "path": paths}
 

@@ -8,7 +8,11 @@ into the port's modules and both packages compute on the same numbers.
 numpy dicts of the flax layout, the form the JAX package's checkpoints
 hold, so a checkpoint the port writes is one both packages read.
 ``export_state_dict`` writes a module as the torch-keyed npz of the
-vendored weights (the detector fit's output).
+vendored weights (the detector fit's output). ``load_state_dict_blocks``
+loads a whole state dict into a module that holds blocks of some entries
+(a tensor-parallel MLP, ``parallel.shard_mlp``: a JAX MLP tree goes in
+through ``state_dict_from_jax`` and ``parallel.mesh.mlp_blocks``, and
+``parallel.gather_mlp`` + ``export_state_dict`` give it back whole).
 
 Rules: conv kernels [kh, kw, I, O] -> weight [O, I, kh, kw]; dense
 kernels [I, O] -> weight [O, I]; BatchNorm scale/bias and batch_stats
@@ -138,3 +142,20 @@ def export_state_dict(module):
                         dtype=np.float32, copy=True)
             for k, v in module.state_dict().items()
             if not k.endswith("num_batches_tracked")}
+
+
+def load_state_dict_blocks(module, state_dict, blocks):
+    """Load a whole torch-keyed ``state_dict`` into ``module``, strictly;
+    ``blocks`` maps a key to ``(dim, index, count)``: the module holds
+    block ``index`` of ``count`` equal blocks of that entry along ``dim``.
+    Returns the module."""
+    sd = {}
+    for key, value in state_dict.items():
+        value = torch.as_tensor(value)
+        if key in blocks:
+            dim, index, count = blocks[key]
+            size = value.shape[dim] // count
+            value = value.narrow(dim, index * size, size)
+        sd[key] = value
+    module.load_state_dict(sd, strict=True)
+    return module

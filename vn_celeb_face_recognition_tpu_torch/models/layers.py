@@ -19,6 +19,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..utils.blocks import global_rows, keep_block
+
 
 def _cast(p, dtype):
     return None if p is None else p.to(dtype)
@@ -44,6 +46,9 @@ def batch_norm(m, x):
     if not m.training:
         return F.batch_norm(x, m.running_mean, m.running_var, m.weight,
                             m.bias, False, 0.0, m.eps)
+    if getattr(m, "global_stats", False):
+        # parallel.GlobalBatchNorm: statistics over the mesh's data axis
+        return m(x)
     c = x.shape[1]
     n = x.numel() // c
     # momentum 1 gives this batch's mean and unbiased variance
@@ -58,16 +63,25 @@ def batch_norm(m, x):
     return out
 
 
-def dropout(x, p, generator):
+def dropout(x, p, generator, cols=(0, 1)):
     """Zero each element with probability ``p`` and scale the rest by
-    1 / (1 - p), the mask drawn from ``generator``."""
+    1 / (1 - p), the mask drawn from ``generator``.
+
+    The mask is drawn for the global batch (``utils.blocks``: this
+    process's rows are one block of it) and, for a tensor-parallel layer,
+    for all ``cols[1]`` column blocks of the last axis; ``x`` takes its
+    block ``cols[0]``. So a row's mask is a one-process run's."""
     if p <= 0.0:
         return x
     if p >= 1.0:
         return torch.zeros_like(x)
     if generator is None:
         raise ValueError("dropout in train mode needs a torch.Generator")
-    keep = torch.empty_like(x).bernoulli_(1.0 - p, generator=generator)
+    n, width = x.shape[0], x.shape[-1]
+    shape = (global_rows(n),) + tuple(x.shape[1:-1]) + (width * cols[1],)
+    keep = torch.empty(shape, dtype=x.dtype, device=x.device).bernoulli_(
+        1.0 - p, generator=generator)
+    keep = keep_block(keep, n).narrow(-1, cols[0] * width, width)
     return x * keep / (1.0 - p)
 
 

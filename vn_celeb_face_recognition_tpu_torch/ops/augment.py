@@ -52,6 +52,11 @@ in the JAX package's order) and for the pipeline
 (``rank1_vn_celeb_aug_params`` / ``_apply``); ``rank1_vn_celeb_aug(gen,
 images)`` draws, then applies. The batch is grouped by augmenter and
 each augmenter runs once on its group.
+
+Under ``utils.blocks.batch_block`` (a data-parallel mesh) ``facenet_aug``
+and ``rank1_vn_celeb_aug`` draw the parameters of the global batch and
+keep this process's block, so the augmented global batch equals a
+one-process run's.
 """
 
 import math
@@ -59,6 +64,7 @@ import math
 import torch
 import torch.nn.functional as F
 
+from ..utils.blocks import global_rows, keep_block
 from .image import fixed_image_standardization, prewhiten
 from .warp import similarity_warp, similarity_warp_frames
 
@@ -145,7 +151,8 @@ def facenet_aug(gen, images, out_size=None):
     b, h, w, _ = images.shape
     if out_size is None:
         out_size = h
-    mats, offs, flip = facenet_aug_params(gen, b, h, w, out_size)
+    drawn = facenet_aug_params(gen, global_rows(b), h, w, out_size)
+    mats, offs, flip = (keep_block(t, b) for t in drawn)
     return facenet_aug_apply(images, mats, offs, flip, out_size)
 
 
@@ -401,5 +408,14 @@ def rank1_vn_celeb_aug_apply(images, params):
 def rank1_vn_celeb_aug(gen, images):
     """rank1_vn_celeb_aug of a batch [B, H, W, 3] with parameters drawn
     from ``gen``."""
+    b = images.shape[0]
+
+    def block(tree):
+        if isinstance(tree, dict):
+            return {k: block(v) for k, v in tree.items()}
+        if isinstance(tree, list):
+            return [block(v) for v in tree]
+        return keep_block(tree, b)
+
     return rank1_vn_celeb_aug_apply(
-        images, rank1_vn_celeb_aug_params(gen, images.shape[0]))
+        images, block(rank1_vn_celeb_aug_params(gen, global_rows(b))))

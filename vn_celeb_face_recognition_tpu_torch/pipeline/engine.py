@@ -23,16 +23,34 @@ Counterpart of ``vn_celeb_face_recognition_tpu/pipeline/engine.py``
 
 and results scatter back to the padded layout. ``identify`` turns the
 padded outputs into per-frame names on the host.
+
+With ``mesh=`` (``parallel.make_mesh``, one process a device) the chunk is
+sharded over the mesh's data axis, as the JAX engine's jitted chunk is:
+every rank is given the whole chunk, pads it with blank frames to a
+multiple of ``n_data``, and runs the detector and the rest on its own
+contiguous block with the weights replicated from rank 0. Compaction stays
+global: the ranks all-gather their (validity, score) keys, each sorts the
+chunk's keys once, as one process would, and keeps the selected slots of
+its block, so the selection (ties included) and ``face_cap_overflow`` are
+the one-process ones on every rank; ``sat_counts`` is the all-reduced
+maximum (the cascade's counts are maxima over frames). The outputs are
+all-gathered, so every rank returns the whole chunk's, and
+``process_adaptive`` retries on every rank together.
 """
 
+import math
 import warnings
 
 import numpy as np
 import torch
+import torch.distributed as dist
+from torch import nn
 
 from ..ops.image import fixed_image_standardization
 from ..ops.similarity import umeyama_similarity
 from ..ops.warp import similarity_warp_frames
+from ..parallel.collectives import all_gather_rows
+from ..parallel.mesh import replicate
 from .align import center_point_dict
 
 
@@ -62,14 +80,25 @@ class FusedRecognitionEngine:
         the faces at 224 px (``target_fs`` must be 112); adds
         ``emotion_idx`` and ``emotion_prob`` [B, K, emotion_topk].
       emotion_topk: emotion tags kept per face.
+      mesh: a ``parallel.Mesh`` to shard each chunk over its data axis
+        (the detector must be on the mesh's device); chunks are then
+        padded to a multiple of ``n_data`` too.
     """
 
     def __init__(self, detector, encoder, classifier, target_fs=112,
                  compute_dtype=torch.float32, face_window=224,
                  face_cap=None, face_hint=None, batch_multiple=1,
-                 emotion=None, emotion_topk=6):
+                 emotion=None, emotion_topk=6, mesh=None):
         self.detector = detector
         self.device = detector.device
+        self.mesh = mesh
+        if mesh is not None:
+            dev = torch.device(self.device)
+            if dev.type != mesh.device.type or dev.index not in (
+                    None, mesh.device.index):
+                raise ValueError(f"the detector is on {dev}, the mesh on "
+                                 f"{mesh.device}")
+            self.device = mesh.device
         self.encoder = encoder.to(self.device).eval()
         self.classifier = classifier.to(self.device).eval()
         self.target_fs = int(target_fs)
@@ -93,6 +122,13 @@ class FusedRecognitionEngine:
         self.emotion = (None if emotion is None
                         else emotion.to(self.device).eval())
         self.emotion_topk = int(emotion_topk)
+        if mesh is not None:
+            self.batch_multiple = math.lcm(self.batch_multiple, mesh.n_data)
+            nets = [v for v in vars(detector).values()
+                    if isinstance(v, nn.Module)]
+            for net in nets + [self.encoder, self.classifier, self.emotion]:
+                if net is not None:
+                    replicate(mesh, net)
 
     @property
     def face_cap(self):
@@ -116,6 +152,27 @@ class FusedRecognitionEngine:
     def _padded_batch(self, b):
         return -(-b // self.batch_multiple) * self.batch_multiple
 
+    def _select(self, valid, score, face_cap):
+        """The compacted slots (indices into this process's ``b * k``
+        slots) and the overflow: the top ``face_cap`` slots by (validity,
+        score), ties to the lower slot, over the whole chunk; under a mesh
+        the ranks' keys are gathered and each keeps its block's slots."""
+        keys = torch.stack([valid.reshape(-1).to(torch.float32),
+                            score.reshape(-1).to(torch.float32)])
+        n_local = keys.shape[1]
+        mesh = self.mesh
+        if mesh is not None:
+            keys = all_gather_rows(keys.T.contiguous(), mesh.data_group).T
+        selkey = keys[0] * 2.0 + keys[1]
+        sel = torch.sort(selkey, descending=True,
+                         stable=True).indices[:face_cap]
+        overflow = torch.clamp(keys[0].sum().to(torch.int32) - face_cap,
+                               min=0)
+        if mesh is not None:
+            lo = mesh.d * n_local
+            sel = sel[(sel >= lo) & (sel < lo + n_local)] - lo
+        return sel, overflow
+
     @torch.no_grad()
     def _run(self, frames, face_cap):
         det_out = self.detector.detect_padded(frames)
@@ -130,16 +187,17 @@ class FusedRecognitionEngine:
         image_idx = torch.arange(b, device=dev,
                                  dtype=torch.int32).repeat_interleave(k)
         sel = overflow = None
-        if face_cap is not None and face_cap < b * k:
-            flat_valid = valid.reshape(b * k)
-            selkey = flat_valid.to(torch.float32) * 2.0 + score.reshape(-1)
-            sel = torch.sort(selkey, descending=True,
-                             stable=True).indices[:face_cap]
-            flat_pts = flat_pts[sel]
-            flat_boxes = flat_boxes[sel]
-            image_idx = image_idx[sel]
-            overflow = torch.clamp(
-                flat_valid.sum(dtype=torch.int32) - face_cap, min=0)
+        n_data = 1 if self.mesh is None else self.mesh.n_data
+        if face_cap is not None and face_cap < b * k * n_data:
+            sel, overflow = self._select(valid, score, face_cap)
+            n_sel = len(sel)
+            # a rank none of whose slots was selected still runs one slot
+            # (its outputs are dropped), so every rank's outputs have the
+            # same widths
+            run_sel = sel if n_sel else sel.new_zeros(1)
+            flat_pts = flat_pts[run_sel]
+            flat_boxes = flat_boxes[run_sel]
+            image_idx = image_idx[run_sel]
 
         # a fixed window around each face; landmarks shift into it
         win = min(self.face_window, h, w)
@@ -176,8 +234,14 @@ class FusedRecognitionEngine:
             if sel is not None:
                 # scatter compacted results back to the padded layout
                 v = torch.zeros((b * k,) + v.shape[1:], dtype=v.dtype,
-                                device=dev).index_copy(0, sel, v)
+                                device=dev).index_copy(0, sel, v[:n_sel])
             out[name] = v.reshape((b, k) + v.shape[1:])
+        if self.mesh is not None:
+            group = self.mesh.data_group
+            out = {name: all_gather_rows(v, group) for name, v in out.items()}
+            if sat is not None:
+                sat = sat.clone()
+                dist.all_reduce(sat, op=dist.ReduceOp.MAX, group=group)
         if sat is not None:
             out["sat_counts"] = sat
         if overflow is not None:
@@ -185,14 +249,18 @@ class FusedRecognitionEngine:
         return out
 
     def _as_frames(self, frames_u8):
+        """The chunk as a tensor: on the device, or under a mesh where it
+        is (``process`` moves this rank's block alone)."""
         if isinstance(frames_u8, np.ndarray):
             frames_u8 = torch.from_numpy(np.ascontiguousarray(frames_u8))
-        return frames_u8.to(self.device)
+        return frames_u8 if self.mesh is not None else frames_u8.to(
+            self.device)
 
     def process(self, frames_u8):
-        """frames_u8: numpy array or tensor [B, H, W, 3] uint8. Returns a
-        dict of device tensors plus the host values ``_face_cap_used``
-        and ``_frame_hw``."""
+        """frames_u8: numpy array or tensor [B, H, W, 3] uint8 (under a
+        mesh, the whole chunk on every rank). Returns a dict of device
+        tensors plus the host values ``_face_cap_used`` and
+        ``_frame_hw``."""
         frames = self._as_frames(frames_u8)
         b, h, w = frames.shape[:3]
         bp = self._padded_batch(b)
@@ -201,8 +269,11 @@ class FusedRecognitionEngine:
             pad = torch.zeros((bp - b,) + tuple(frames.shape[1:]),
                               dtype=frames.dtype, device=frames.device)
             frames = torch.cat([frames, pad])
+        if self.mesh is not None:
+            block = bp // self.mesh.n_data
+            frames = frames[self.mesh.d * block:(self.mesh.d + 1) * block]
         cap = self._select_cap(bp * self.detector.out_cap)
-        out = self._run(frames, cap)
+        out = self._run(frames.to(self.device), cap)
         if bp != b:
             scalar_keys = ("sat_counts", "face_cap_overflow")
             out = {k: (v if k in scalar_keys else v[:b])
@@ -235,6 +306,13 @@ class FusedRecognitionEngine:
             out = self.process(frames)
         return out
 
+    def observe(self, outputs):
+        """Take the chunk's valid-face count as the hint for the next
+        chunk's bucket (``identify`` does; under a mesh the ranks that do
+        not identify call it, so every rank picks the same bucket)."""
+        if self.face_buckets:
+            self._face_hint = int(outputs["valid"].sum())
+
     def identify(self, outputs, names, threshold):
         """Host post-pass: padded predictions -> per frame (names, boxes)
         of the valid faces, or (names, boxes, emotion_idx, emotion_prob)
@@ -251,8 +329,7 @@ class FusedRecognitionEngine:
             self.detector.warn_capacity_saturation(outs["sat_counts"],
                                                    hw=frame_hw)
         overflow = int(outs.get("face_cap_overflow", 0))
-        if self.face_buckets:
-            self._face_hint = int(outs["valid"].sum())
+        self.observe(outputs)
         if overflow > 0:
             warnings.warn(
                 f"engine face_cap={cap_used or self.face_cap} overflowed "

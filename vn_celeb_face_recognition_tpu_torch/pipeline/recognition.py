@@ -7,7 +7,11 @@ with its signatures and numpy return types:
   * ``Encoder`` / ``Classifier`` / ``EmotionModel`` wrap a module on a
     device (the card unless ``device="cpu"`` is passed): NHWC float numpy
     in, through the wrapper's ``transform``, numpy out. PyTorch runs
-    eagerly, so batches are not padded to buckets;
+    eagerly, so batches are not padded to buckets. With ``mesh=`` (the
+    counterpart of ``_JitApply(mesh=)``) a batch is padded with copies of
+    its first row to a multiple of the mesh's ``n_data``, each data rank
+    applies the module to its block, and the blocks are all-gathered and
+    cut back to the batch, on every rank;
   * ``sequential_detect_and_align`` and ``parallel_detect_and_align`` run
     the detector's ``inference`` once for the call (MTCNN: kernels K4, K2,
     K3 and K5; RetinaFace: K6 and K3), gather every kept crop of every
@@ -37,6 +41,8 @@ from torch import nn
 
 from ..data.transforms import transform_emotion_inf, transforms_dict
 from ..models.layers import read_state_dict
+from ..parallel.collectives import all_gather_rows
+from ..parallel.mesh import replicate
 from ..training.checkpoint import load_checkpoint, load_state_dict_from_jax
 from ..utils.device import select_device
 from ..utils.tracing import timed_stage
@@ -45,12 +51,18 @@ from .align import align_crops, pad_windows
 
 class _Apply(nn.Module):
     """A module on a device behind a batched NHWC transform: float numpy
-    in, numpy out (a tuple for a module with several outputs)."""
+    in, numpy out (a tuple for a module with several outputs). Under a
+    ``mesh`` the module runs on the mesh's device, its weights replicated
+    from rank 0, and each rank applies it to its data block."""
 
-    def __init__(self, module, transform=None, device="cuda"):
+    def __init__(self, module, transform=None, device="cuda", mesh=None):
         super().__init__()
-        self.device = select_device(device)
+        self.mesh = mesh
+        self.device = (select_device(device) if mesh is None
+                       else mesh.device)
         self.module = module.to(self.device).eval()
+        if mesh is not None:
+            replicate(mesh, self.module)
         self.transform = transform
 
     @property
@@ -61,15 +73,30 @@ class _Apply(nn.Module):
     def _run(self, x):
         return self.module(x)
 
-    @torch.no_grad()
-    def forward(self, x):
-        x = torch.as_tensor(np.asarray(x, np.float32), device=self.device)
+    def _apply_block(self, x):
+        """The module's output(s) on a device batch."""
         if self.transform is not None:
             x = self.transform(x, None)
-        out = self._run(x)
-        if isinstance(out, tuple):
-            return tuple(o.to(torch.float32).cpu().numpy() for o in out)
-        return out.to(torch.float32).cpu().numpy()
+        return self._run(x)
+
+    @torch.no_grad()
+    def forward(self, x):
+        x = np.asarray(x, np.float32)
+        n = len(x)
+        mesh = self.mesh
+        if mesh is not None:
+            n_pad = -(-n // mesh.n_data) * mesh.n_data
+            if n_pad != n:
+                x = np.concatenate([x, np.repeat(x[:1], n_pad - n, axis=0)])
+            block = n_pad // mesh.n_data
+            x = x[mesh.d * block:(mesh.d + 1) * block]
+        out = self._apply_block(torch.as_tensor(x, device=self.device))
+        outs = out if isinstance(out, tuple) else (out,)
+        if mesh is not None:
+            outs = tuple(all_gather_rows(o, mesh.data_group)[:n]
+                         for o in outs)
+        outs = tuple(o.to(torch.float32).cpu().numpy() for o in outs)
+        return outs if isinstance(out, tuple) else outs[0]
 
 
 class Encoder(_Apply):
@@ -127,13 +154,12 @@ class EmotionModel(_Apply):
         if x.ndim != 4 or x.shape[3] != 3:
             raise ValueError(f"EmotionModel takes [K, H, W, 3] faces, got "
                              f"{list(x.shape)}")
-        x = torch.from_numpy(x).to(self.device)
+        return super().forward(x)
+
+    def _apply_block(self, x):
         if x.shape[1:3] == (self.FACE_SIZE, self.FACE_SIZE):
-            logits, proj = self.module(x)
-        else:
-            logits, proj = self.module.forward_normalized(self.transform(x))
-        return (logits.to(torch.float32).cpu().numpy(),
-                proj.to(torch.float32).cpu().numpy())
+            return self.module(x)
+        return self.module.forward_normalized(self.transform(x))
 
     @classmethod
     def build(cls, name="resnet_2branch_50", device="cuda", **args):

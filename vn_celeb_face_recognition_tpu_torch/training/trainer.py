@@ -34,7 +34,17 @@ it steps before the epoch's checkpoint is written, so that a resumed run
 continues exactly. Batches reach the device through
 ``data.prefetch_to_device``.
 
-Only one device: a mesh or ``n_devices`` > 1 raises (ROADMAP.md A.8).
+Under a mesh (``mesh=``, or ``trainer.n_devices`` > 1 in a process that
+``parallel.launch`` started, which builds a data mesh of that many
+processes), one SPMD step as the JAX trainer's: each process reads only
+its block of every global batch, draws the augmentation and dropout for
+the global batch and keeps its block, normalises train-mode BatchNorm with
+the global batch's statistics (``parallel.GlobalBatchNorm``), takes its
+share of the global weighted loss and sums the gradients, loss and
+metrics over the data axis (``parallel.train_dp``); an MLP is sharded over
+the model axis. So each step equals the one-process step. Only rank 0
+logs and writes files; checkpoints are written whole (the MLP gathered)
+and resume on any number of processes.
 """
 
 import logging
@@ -43,9 +53,21 @@ from pathlib import Path
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..data.loader import prefetch_to_device
 from ..data.transforms import get_transform, with_resize
+from ..parallel import GlobalBatchNorm, gather_mlp, make_mesh, replicate, \
+    shard_mlp
+from ..parallel.collectives import (
+    all_gather_rows,
+    all_reduce_grads,
+    all_reduce_values,
+    data_block,
+    total_weight,
+    weighted_share,
+)
+from ..parallel.mesh import is_mlp
 from ..utils.device import select_device
 from ..utils.io import append_log_to_file, create_folder, save_csv
 from ..utils.logging import setup_logging
@@ -70,12 +92,19 @@ class BaseTrainer:
                  optimizer=None, lr_scheduler=None, mesh=None, seed=123,
                  device="cuda"):
         tcfg = config["trainer"]
-        if mesh is not None or tcfg.get("n_devices", 1) > 1:
-            raise NotImplementedError(
-                "data-parallel training (a mesh, n_devices > 1) is not "
-                "ported yet (ROADMAP.md A.8)")
+        if mesh is None and tcfg.get("n_devices", 1) > 1:
+            mesh = make_mesh(n_data=tcfg["n_devices"], device=device)
+        self.mesh = mesh
+        self.is_main = mesh is None or mesh.rank == 0
         self.config = config
-        self.device = select_device(device)
+        if mesh is not None:
+            if torch.device(device).type != mesh.device.type:
+                raise ValueError(f"device {device!r} is not the mesh's "
+                                 f"{mesh.device}")
+            self.device = mesh.device
+            model = GlobalBatchNorm.convert(model, mesh.data_group)
+        else:
+            self.device = select_device(device)
         self.model = model.to(self.device)
         self.loss_name = config["loss"]
         self.loss_fn = loss if loss is not None else LOSSES[self.loss_name]
@@ -117,9 +146,10 @@ class BaseTrainer:
         run_id = datetime.now().strftime(r"%m%d_%H%M%S")
         self.save_dir = save_dir / "models" / run_id
         self.log_dir = save_dir / "logs" / run_id
-        create_folder(self.save_dir)
-        create_folder(self.log_dir)
-        setup_logging(self.log_dir)
+        if self.is_main:
+            create_folder(self.save_dir)
+            create_folder(self.log_dir)
+            setup_logging(self.log_dir)
         self.logger = logging.getLogger("trainer")
 
         self.mnt_best = np.inf if self.mode_monitor == "min" else -np.inf
@@ -134,6 +164,10 @@ class BaseTrainer:
         cp_path = tcfg.get("resume_path", "")
         if cp_path:
             self.resume_checkpoint(cp_path)
+        if mesh is not None:
+            replicate(mesh, self.model)
+            if mesh.n_model > 1 and is_mlp(self.model):
+                shard_mlp(mesh, self.model, self.optimizer)
 
     # ------------------------------------------------------------------
     # setup
@@ -155,6 +189,9 @@ class BaseTrainer:
     def setup_loader(self, train_loader, val_loader):
         self.train_loader = train_loader
         self.val_loader = val_loader
+        if self.mesh is not None:
+            for loader in (train_loader, val_loader):
+                loader.set_block(self.mesh.d, self.mesh.n_data)
         if self._loader_state is not None:
             train_loader.set_rng_state(self._loader_state)
             self._loader_state = None
@@ -184,30 +221,44 @@ class BaseTrainer:
 
     def _train_step(self, batch):
         """One optimisation step on a device batch. Returns [loss, sum of
-        the weights, *metrics] as Python floats (one copy to the host)."""
-        x = self._encode(self._prepare_input(batch["data"], train=True))
-        return self._update(x, batch["target"], batch["weight"])
+        the weights, *metrics] as Python floats (one copy to the host);
+        under a mesh, the global batch's."""
+        with data_block(self.mesh):
+            x = self._encode(self._prepare_input(batch["data"], train=True))
+            return self._update(x, batch["target"], batch["weight"])
 
     def _update(self, x, target, weight):
         """Forward, loss, backward and the optimizer's step on the model's
         input ``x``; the step's values as ``_train_step`` returns them."""
-        loss, out = self._forward_backward(x, target, weight)
+        total = total_weight(weight, self.mesh)
+        loss, out = self._forward_backward(x, target, weight, total)
         self._optimizer_step()
+        return self._step_values(loss.detach(), out, target, weight, total)
+
+    def _step_values(self, loss_share, out, target, weight, total):
+        """[loss, weight sum, *metrics] of the global batch from this
+        rank's loss share and outputs, as Python floats."""
         with torch.no_grad():
-            vals = torch.stack([loss.detach(), weight.sum(),
-                                *self._metrics(out, target, weight)])
+            metrics = [weighted_share(m, weight, total)
+                       for m in self._metrics(out, target, weight)]
+            vals = torch.stack([loss_share, *metrics])
+            vals = all_reduce_values(vals, self.mesh)
+            vals = torch.cat([vals[:1], total.to(vals)[None], vals[1:]])
         return vals.tolist()
 
-    def _forward_backward(self, x, target, weight):
+    def _forward_backward(self, x, target, weight, total):
         """The model in train mode on ``x`` (its BatchNorms update their
-        running statistics), the loss and its gradients. Returns (loss,
-        model output)."""
+        running statistics), this rank's share of the loss over ``total``
+        weight and its gradients, summed over the data axis under a mesh.
+        Returns (loss share, model output)."""
         with annotate("forward_backward", self.device):
             self.model.train()
             out = self.model(x, generator=self.generator)
-            loss = self.loss_fn(out, target, weight)
+            loss = weighted_share(self.loss_fn(out, target, weight), weight,
+                                  total)
             self.optimizer.zero_grad(set_to_none=True)
             loss.backward()
+            all_reduce_grads(list(self.model.parameters()), self.mesh)
             return loss, out.detach()
 
     def _optimizer_step(self):
@@ -216,18 +267,20 @@ class BaseTrainer:
 
     @torch.no_grad()
     def _eval_step(self, batch):
-        """Loss, weight sum and metrics (floats), and the predictions and
-        their probabilities (device tensors) of a device batch."""
+        """Loss, weight sum and metrics (floats; the global batch's under a
+        mesh), and the predictions and their probabilities (device
+        tensors) of a device batch."""
         self.model.eval()
-        x = self._encode(self._prepare_input(batch["data"], train=False))
+        with data_block(self.mesh):
+            x = self._encode(self._prepare_input(batch["data"], train=False))
         target, weight = batch["target"], batch["weight"]
         out = self.model(x)
-        loss = self.loss_fn(out, target, weight)
+        total = total_weight(weight, self.mesh)
+        loss = weighted_share(self.loss_fn(out, target, weight), weight,
+                              total)
         pred = out.argmax(dim=1)
         prob = out.gather(1, pred[:, None])[:, 0].exp()
-        vals = torch.stack([loss, weight.sum(),
-                            *self._metrics(out, target, weight)]).tolist()
-        return vals, pred, prob
+        return self._step_values(loss, out, target, weight, total), pred, prob
 
     # ------------------------------------------------------------------
     # checkpointing
@@ -277,12 +330,20 @@ class BaseTrainer:
                         trainer_state=self.trainer_state())
 
     def save_checkpoint_file(self, epoch, save_best):
-        filename = str(self.save_dir / f"checkpoint-epoch{epoch}.ckpt")
-        self._save(filename, epoch)
-        self.logger.info("Saving checkpoint: {} ...".format(filename))
-        if save_best:
-            self._save(str(self.save_dir / "model_best.ckpt"), epoch)
-            self.logger.info("Saving current best: model_best.ckpt ...")
+        """Rank 0 writes the checkpoints, whole: a sharded MLP is gathered
+        for them (every rank takes part) and sharded again."""
+        sharded = getattr(self.model, "mesh", None) is not None
+        if sharded:
+            gather_mlp(self.mesh, self.model, self.optimizer)
+        if self.is_main:
+            filename = str(self.save_dir / f"checkpoint-epoch{epoch}.ckpt")
+            self._save(filename, epoch)
+            self.logger.info("Saving checkpoint: {} ...".format(filename))
+            if save_best:
+                self._save(str(self.save_dir / "model_best.ckpt"), epoch)
+                self.logger.info("Saving current best: model_best.ckpt ...")
+        if sharded:
+            shard_mlp(self.mesh, self.model, self.optimizer)
 
     def reset_metrics_tracker(self):
         for tracker in (self.train_loss, self.train_metrics, self.val_loss,
@@ -294,6 +355,7 @@ class BaseTrainer:
     # ------------------------------------------------------------------
 
     def train(self, track4plot=False):
+        track4plot = track4plot and self.is_main
         if track4plot:
             self.track4plot = str(self.log_dir / "log_loss.txt")
             append_log_to_file(
@@ -340,12 +402,14 @@ class BaseTrainer:
     def eval(self, save_result=False):
         if save_result:
             log, result = self._validate_epoch(1, save_result=True)
-            res_path = str(self.save_dir / "result.csv")
-            rows = [row for batch_rows in result
-                    for row in zip(*batch_rows)]
-            save_csv(rows, res_path,
-                     columns=["Path", "Target", "Prediction", "Probability"])
-            print("Saved prediction to {}.".format(res_path))
+            if self.is_main:
+                res_path = str(self.save_dir / "result.csv")
+                rows = [row for batch_rows in result
+                        for row in zip(*batch_rows)]
+                save_csv(rows, res_path, columns=["Path", "Target",
+                                                  "Prediction",
+                                                  "Probability"])
+                print("Saved prediction to {}.".format(res_path))
         else:
             log = self._validate_epoch(1)
         for key, value in log.items():
@@ -400,13 +464,7 @@ class ClassificationTrainer(BaseTrainer):
                 self.logger.debug("{}: {}".format(
                     self.loss_name, self.val_loss.avg(self.loss_name)))
             if save_result:
-                keep = (batch["weight"] > 0).cpu().numpy()
-                result.append([
-                    [p for p, k in zip(batch["path"], keep) if k],
-                    batch["target"].cpu().numpy()[keep],
-                    pred.cpu().numpy()[keep],
-                    prob.cpu().numpy()[keep],
-                ])
+                result.append(self._result_rows(batch, pred, prob))
 
         log = self.val_loss.result()
         log.update(self.val_metrics.result())
@@ -414,6 +472,25 @@ class ClassificationTrainer(BaseTrainer):
         if save_result:
             return val_log, result
         return val_log
+
+    def _result_rows(self, batch, pred, prob):
+        """The batch's (paths, targets, predictions, probabilities) of its
+        real rows; under a mesh, of the global batch (every data block
+        gathered, in order)."""
+        target, weight = batch["target"], batch["weight"]
+        paths = list(batch["path"])
+        if self.mesh is not None:
+            group = self.mesh.data_group
+            target, weight, pred, prob = (all_gather_rows(t, group)
+                                          for t in (target, weight, pred,
+                                                    prob))
+            parts = [None] * self.mesh.n_data
+            dist.all_gather_object(parts, paths, group=group)
+            paths = [p for part in parts for p in part]
+        keep = (weight > 0).cpu().numpy()
+        return [[p for p, k in zip(paths, keep) if k],
+                target.cpu().numpy()[keep], pred.cpu().numpy()[keep],
+                prob.cpu().numpy()[keep]]
 
     def log_for_step(self, epoch, batch_idx, n_batches):
         self.logger.info(
@@ -449,6 +526,8 @@ class AugClassificationTrainer(ClassificationTrainer):
             encoder = model_md.build_model(encoder_info["name"],
                                            **encoder_info["args"])
         self.encoder = encoder.to(self.device).eval().requires_grad_(False)
+        if self.mesh is not None:
+            replicate(self.mesh, self.encoder)
 
     def _encode(self, x):
         with annotate("encode", self.device), torch.no_grad():
