@@ -206,6 +206,22 @@ Phases, one line of output each (a failed phase exits non-zero):
       px, embedding cosine >= 0.9999, launches K2 1, K3 4, K4 4, K5 2, K1 1
       in the mesh chunk), ms a chunk both ways (median of 3); the NCCL
       version and the time the launch took to reach the function.
+  31. the rest of the JAX package's surface: rest, the default line's
+      chunk (64x640x640, bf16) through an engine whose MTCNN reads a
+      ``weights_dir`` of .pt files and whose emotion head (690 tags,
+      ``num_projections`` 128) runs at ``emotion_size`` 64 (the net's
+      own stem; K8 on the tails, no K7), launches exact per run, median
+      chunk ms; rest-mtcnn, those detections torch.equal to the vendored
+      npz's; rest-engine-card-vs-cpu, the engine at emotion_size 64 and
+      224 in f32 on 2 frames (the engine gates); rest-proj, x_proj card
+      vs CPU; rest-crops, ``ops.image.batched_crop_area_resize`` through
+      K4 (3 launches a call, torch.equal to its plain version) at the
+      default line's RNet and ONet crop counts, timed beside its bound,
+      and the bilinear crops card vs CPU; rest-align,
+      ``pipeline.align.align_faces_batch`` card vs CPU, each side beside
+      an f64 reference; rest-k8, K8 in bf16 on the tails' own inputs
+      from the emotion_size 64 engine (16 and 8 px maps) held to the
+      plain version in f32, timed beside its bound.
 
 Kernel phases check bf16 at the lines' shapes and f32 on a slice of
 them; exact kernels (K3, K4) are held with torch.equal. Every kernel is
@@ -4944,6 +4960,385 @@ def phase_parallel(torch, card):
         fail(f"parallel-engine: launches {e['counts']}, want {want}")
 
 
+# phase 31 (rest): the default line's chunk through an engine whose MTCNN
+# reads a weights_dir of .pt files and whose emotion head (690 tags, 128
+# projections) runs at REST_EMOTION_SIZE; REST_CHUNKS timed chunks
+REST_EMOTION_SIZE, REST_PROJECTIONS, REST_CHUNKS = 64, 128, 3
+# align_faces_batch card vs CPU, and each f32 side vs the f64 reference:
+# f32 rounding of a source coordinate near 640 px (6e-5 px an ulp) times
+# an intensity step of up to 255 a pixel; each side measured 1.4e-2 to
+# 1.7e-2 from f64 on the card's run of this phase, card vs CPU 1.95e-2
+ALIGN_ATOL = 0.05
+
+
+def emotion_engine_card_vs_cpu(torch, engine_cls, mtcnn_cls, models,
+                               models_cpu, two, size, dev):
+    """The engine with the emotion head at ``emotion_size`` ``size`` in f32
+    on the card and on the CPU, 2 frames: the engine gates (valid equal,
+    boxes within 1e-2 px, embedding cosine >= 0.999, emotion top-1 equal,
+    emotion probabilities within 5e-3)."""
+    outs = []
+    for where, (e, c, m) in ((dev, models), ("cpu", models_cpu)):
+        e.dtype = m.dtype = torch.float32
+        eng = engine_cls(
+            mtcnn_cls(dtype=torch.float32, device=where, **DETECTOR), e, c,
+            target_fs=112, compute_dtype=torch.float32, face_cap=[8, 16],
+            face_hint=8, emotion=m, emotion_size=size,
+            emotion_topk=EMOTION_TOPK)
+        outs.append({k: v.cpu() for k, v in eng.process_adaptive(two).items()
+                     if isinstance(v, torch.Tensor)})
+    gpu, cpu = outs
+    if not torch.equal(gpu["valid"], cpu["valid"]):
+        fail(f"rest-engine-card-vs-cpu at {size} px: valid masks differ")
+    v = cpu["valid"]
+    box_err = float((gpu["boxes"][v] - cpu["boxes"][v]).abs().max())
+    cos = float(torch.nn.functional.cosine_similarity(
+        gpu["embeddings"][v], cpu["embeddings"][v], dim=-1).min())
+    top1 = bool(torch.equal(gpu["emotion_idx"][v][:, 0],
+                            cpu["emotion_idx"][v][:, 0]))
+    prob_err = float((gpu["emotion_prob"][v]
+                      - cpu["emotion_prob"][v]).abs().max())
+    if (int(v.sum()) == 0 or box_err > 1e-2 or cos < 0.999 or not top1
+            or prob_err > 5e-3):
+        fail(f"rest-engine-card-vs-cpu at {size} px: {int(v.sum())} valid, "
+             f"box diff {box_err:.2e}, cosine {cos:.6f}, top-1 equal {top1},"
+             f" prob diff {prob_err:.2e}")
+    return (f"emotion_size {size}: {int(v.sum())} valid on both, box diff "
+            f"{box_err:.2e} (atol 1e-2), cosine min {cos:.6f} (>= 0.999), "
+            f"top-1 equal, prob diff {prob_err:.2e} (atol 5e-3)")
+
+
+def phase_rest(torch, kernels, K4, K8, dev, card, results):
+    """Phase 31: the last of the JAX package's surface on the card.
+
+    rest: the default line's chunk (64x640x640, bf16) through an engine
+    whose MTCNN reads a ``weights_dir`` of .pt files written from the
+    vendored npz and whose emotion head (``num_projections`` 128) runs at
+    ``emotion_size`` 64 (the net's own stem, K8 on the tails, no K7),
+    launches held to exact per-run counts; rest-k8, K8 in bf16 on the
+    tails' own inputs from that engine (16 and 8 px maps) held to the
+    plain version in f32 and timed beside its bound; rest-mtcnn, that MTCNN's
+    detections equal (torch.equal) to the default MTCNN's;
+    rest-engine-card-vs-cpu, the engine at emotion_size 64 and 224 card
+    vs CPU in f32; rest-proj, the 128-wide ``proj`` card vs CPU;
+    rest-crops, ``ops.image.batched_crop_area_resize`` through K4 (three
+    launches a call) equal to its plain version at the default line's RNet
+    (24 px) and ONet (48 px) crop counts, timed; ``crop_resize_bilinear``,
+    ``batched_crop_resize`` and ``pipeline.align.align_faces_batch`` card
+    vs CPU, timed, each f32 side shown beside an f64 reference."""
+    import copy as _copy
+
+    from vn_celeb_face_recognition_tpu_torch.models import (
+        MLPModel,
+        resnet_2branch_50,
+    )
+    from vn_celeb_face_recognition_tpu_torch.models.inception_resnet_v1 import (  # noqa: E501
+        InceptionResnetV1,
+    )
+    from vn_celeb_face_recognition_tpu_torch.models.layers import (
+        read_state_dict,
+        seeded_init_,
+    )
+    from vn_celeb_face_recognition_tpu_torch.models.mtcnn import (
+        MTCNN,
+        NETS,
+        WEIGHTS_DIR,
+    )
+    from vn_celeb_face_recognition_tpu_torch.ops import boxes as B
+    from vn_celeb_face_recognition_tpu_torch.ops import image as I
+    from vn_celeb_face_recognition_tpu_torch.pipeline.align import (
+        align_faces_batch,
+        center_point_dict,
+    )
+    from vn_celeb_face_recognition_tpu_torch.pipeline.engine import (
+        FusedRecognitionEngine,
+    )
+    from vn_celeb_face_recognition_tpu_torch.utils.frames import build_frames
+
+    frames_np = build_frames(BATCH, SIZE, FACES_PER_FRAME)
+    frames = torch.from_numpy(frames_np).to(dev)
+    g = torch.Generator().manual_seed(31)
+    enc = seeded_init_(InceptionResnetV1(dtype=torch.bfloat16), g)
+    clf = seeded_init_(MLPModel(512, N_CLASSES), g)
+    emo = seeded_init_(resnet_2branch_50(
+        num_classes=EMOTION_TAGS, num_projections=REST_PROJECTIONS,
+        dtype=torch.bfloat16), g)
+    with torch.no_grad():  # logits of order 1, so the softmax is not flat
+        emo.fc.weight.mul_(0.02)
+    cpu_models = tuple(_copy.deepcopy(m) for m in (enc, clf, emo))
+    with scratch("rest_") as work:
+        for net in NETS:
+            torch.save(read_state_dict(os.path.join(WEIGHTS_DIR,
+                                                    f"{net}.npz")),
+                       os.path.join(work, f"{net}.pt"))
+        det = MTCNN(dtype=torch.bfloat16, device=dev, weights_dir=work,
+                    **DETECTOR)
+    det_default = MTCNN(dtype=torch.bfloat16, device=dev, **DETECTOR)
+    with torch.no_grad():
+        got = det.detect_padded(frames[:8])
+        want = det_default.detect_padded(frames[:8])
+    same = all(torch.equal(a, b) for a, b in zip(got, want))
+    # stage 1's box grid at the default and stock (min_face_size 20)
+    # pyramids: the card divides by the scale as the CPU does
+    from vn_celeb_face_recognition_tpu_torch.models.mtcnn import (
+        _stage1_boxes,
+    )
+
+    stock = _copy.copy(det)
+    stock.min_face_size = 20
+    grid_equal = True
+    for scale in det._scales(SIZE, SIZE) + stock._scales(SIZE, SIZE):
+        n = int(SIZE * scale + 1)
+        score = torch.zeros((1, n, n))
+        reg = torch.zeros((1, n, n, 4))
+        card_boxes = _stage1_boxes(score.to(dev), reg.to(dev), scale,
+                                   0.6)[0].cpu()
+        grid_equal &= torch.equal(card_boxes,
+                                  _stage1_boxes(score, reg, scale, 0.6)[0])
+    phase("rest-mtcnn", f"MTCNN(weights_dir=<{', '.join(NETS)}>.pt) on "
+          f"8x{SIZE}x{SIZE} bf16: detections equal to the vendored npz's "
+          f"{same} (torch.equal; {int(want[3].sum())} valid); stage 1's box "
+          f"grids at the default and stock pyramids card vs CPU equal "
+          f"{grid_equal} (torch.equal)")
+    if not same or not grid_equal:
+        fail("rest-mtcnn: the .pt weights_dir detects otherwise, or stage "
+             "1's box grid differs card vs CPU")
+
+    # ---- the slice's path: the engine at emotion_size 64 ----------------
+    engine = FusedRecognitionEngine(
+        det, enc, clf, target_fs=112, compute_dtype=torch.bfloat16,
+        face_cap=FACE_BUCKETS, face_hint=BATCH * FACES_PER_FRAME,
+        emotion=emo, emotion_size=REST_EMOTION_SIZE,
+        emotion_topk=EMOTION_TOPK)
+    chunks = [frames, torch.from_numpy(np.roll(frames_np, 97, axis=2)).to(
+        dev)]
+    names = {label: f"celeb_{label}" for label in range(N_CLASSES)}
+    for c in chunks:  # warm-up
+        engine.identify(engine.process_adaptive(c), names, 0.5)
+    times, valid_counts, counts, runs, out, res = drive(
+        torch, kernels, engine, chunks, REST_CHUNKS, names)
+    tail_blocks = len(emo.layer1) - 1 + len(emo.layer2) - 1
+    check_line_counts(counts, {**MTCNN_LINE_LAUNCHES,
+                               "bottleneck_chain": 3 * tail_blocks}, runs,
+                      "rest", results)
+    if any(len(r) != 4 for r in res):
+        fail("rest: identify did not return emotion tags per frame")
+    v = out["valid"]
+    if not bool(torch.isfinite(out["emotion_prob"][v]).all()):
+        fail("rest: non-finite emotion probabilities")
+    chunk_ms = sorted(times)[len(times) // 2] * 1e3
+    faces = sum(valid_counts) / len(valid_counts)
+    phase("rest", f"{len(times)} chunks of {BATCH}x{SIZE}x{SIZE}, bf16, "
+          f"MTCNN from a .pt weights_dir + InceptionResnetV1 + MLP "
+          f"{N_CLASSES} + emotion ({EMOTION_TAGS} tags, proj "
+          f"{REST_PROJECTIONS}) at emotion_size {REST_EMOTION_SIZE}; valid "
+          f"faces per chunk {valid_counts}; {runs} chunk runs; median chunk "
+          f"{chunk_ms:.2f} ms (host clock incl. identify), "
+          f"{faces / chunk_ms * 1e3:.1f} faces/s on {card}; launches "
+          f"{counts} (K8 on the tails at {REST_EMOTION_SIZE // 4} and "
+          f"{REST_EMOTION_SIZE // 8} px maps, no K7)")
+    if min(valid_counts) < 0.9 * BATCH * FACES_PER_FRAME:
+        fail(f"rest: too few faces detected: {valid_counts}")
+    points = out["points"][:8][v[:8]]
+    idx8 = torch.nonzero(v[:8])[:, 0].to(torch.int32)
+    rest_k8(torch, kernels, K8, engine, emo, chunks[0], card, results)
+    del engine, chunks, out, res, det, det_default
+
+    # ---- the engine at 64 and 224 px, and proj, card vs CPU -------------
+    gates = [emotion_engine_card_vs_cpu(
+        torch, FusedRecognitionEngine, MTCNN, (enc, clf, emo), cpu_models,
+        frames_np[:2], size, dev) for size in (REST_EMOTION_SIZE, 224)]
+    phase("rest-engine-card-vs-cpu", f"2x{SIZE}x{SIZE} f32, MTCNN + "
+          f"InceptionResnetV1 + MLP + emotion: " + "; ".join(gates))
+    gen = np.random.default_rng(31)
+    x64 = gen.normal(size=(8, REST_EMOTION_SIZE, REST_EMOTION_SIZE, 3))
+    f112 = gen.uniform(0, 255, (8, 112, 112, 3))
+    projs = []
+    with torch.no_grad():
+        for m, where in ((emo, dev), (cpu_models[2], "cpu")):
+            projs.append((
+                m.forward_normalized(torch.from_numpy(x64).float().to(
+                    where))[1].cpu(),
+                m(torch.from_numpy(f112).float().to(where))[1].cpu()))
+    errs = []
+    for got_p, want_p, what in zip(projs[0], projs[1], ("64 px normalised",
+                                                        "112 px faces")):
+        if got_p.shape != (8, REST_PROJECTIONS):
+            fail(f"rest-proj: x_proj shape {tuple(got_p.shape)}")
+        scale = float(want_p.abs().max())
+        errs.append(f"{what} max abs err {check_close(torch, got_p, want_p, 1e-3, 1e-3 * scale, 'rest-proj ' + what):.2e}")  # noqa: E501
+    phase("rest-proj", f"ResNet2Branch(num_projections={REST_PROJECTIONS}) "
+          f"f32, 8 inputs, x_proj card vs CPU (rtol 1e-3, atol 1e-3 x "
+          f"max|ref|): {'; '.join(errs)}")
+    del emo, enc, clf, cpu_models
+
+    # ---- the library crops and batched alignment ------------------------
+    h, w = SIZE, SIZE
+    crop_lines = []
+    for s, per in ((24, DETECTOR["rnet_cap"]), (48, DETECTOR["onet_cap"])):
+        xy = gen.uniform(-40, w, (BATCH * per, 2))
+        side = gen.uniform(12, 260, (BATCH * per, 1))
+        bx = torch.from_numpy(np.trunc(np.concatenate(
+            [xy, xy + side], -1)).astype(np.float32)).to(dev)
+        bx = B.clamp_boxes(bx, w, h)
+        idx = torch.arange(BATCH, device=dev,
+                           dtype=torch.int32).repeat_interleave(per)
+
+        def flat(bx=bx, idx=idx, s=s):
+            return I.batched_crop_area_resize(frames, bx, idx, s)
+
+        def plain(bx=bx, s=s, per=per):
+            return K4.grouped_crop_area_resize_plain(
+                frames, bx.reshape(BATCH, per, 4), s).reshape(-1, s, s, 3)
+
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        got = flat()
+        check_line_counts(kernels.launch_counts(), {"crop_area_resize": 3},
+                          1, f"rest-crops S={s}", results)
+        n8 = 8 * per  # the CPU runs the first 8 frames' crops
+        if not torch.equal(got, plain()) or not torch.equal(
+                got[:n8].cpu(), I.batched_crop_area_resize(
+                    frames[:8].cpu(), bx[:n8].cpu(), idx[:n8].cpu(), s)):
+            fail(f"rest-crops S={s}: batched_crop_area_resize differs from "
+                 "its plain version")
+        ms, call_ms, plain_ms = timed(torch, "crop_area_resize", flat, plain,
+                                      plain_runs=5)
+        bound_ms, bound_by = bound(frames.numel() + bx.numel() * 4
+                                   + got.numel() * 4, 0, PEAK_F32)
+        results["crop_area_resize"][f"batched_s{s}"] = dict(
+            k=int(bx.shape[0]), ms=ms, call_ms=call_ms, plain_ms=plain_ms,
+            bound_ms=bound_ms)
+        crop_lines.append(
+            f"S={s} K={bx.shape[0]}: torch.equal to the plain version (card;"
+            f" and the CPU on 8 frames), 3 launches a call; kernel {ms:.3f} ms, call "
+            f"{call_ms:.3f} ms, plain {plain_ms:.3f} ms, bound "
+            f"{bound_ms:.3f} ms ({bound_by})")
+        # the bilinear crops of the same boxes, card vs CPU
+        bil = I.batched_crop_resize(frames, bx, idx, s)
+        bil_cpu = I.batched_crop_resize(frames[:8].cpu(), bx[:n8].cpu(),
+                                        idx[:n8].cpu(), s)
+        bil_err = check_close(torch, bil[:n8].cpu(), bil_cpu, 1e-4, 1e-4,
+                              f"batched_crop_resize S={s}")
+        one = I.crop_resize_bilinear(frames[3], bx[5], s)
+        check_close(torch, one.cpu(), I.crop_resize_bilinear(
+            frames[3].cpu(), bx[5].cpu(), s), 1e-4, 1e-4,
+            "crop_resize_bilinear")
+        bil_ms = median_ms(torch, lambda: I.batched_crop_resize(
+            frames, bx, idx, s), runs=10)
+        crop_lines.append(f"batched_crop_resize S={s} card vs CPU (8 "
+                          f"frames) max abs err {bil_err:.2e} (1e-4), "
+                          f"{bil_ms:.3f} ms a call of K={bx.shape[0]} (CUDA "
+                          f"events, median of 10)")
+    phase("rest-crops", f"ops.image on {BATCH}x{SIZE}x{SIZE} u8 frames: "
+          f"batched_crop_area_resize (K4) " + "; ".join(crop_lines)
+          + f"; crop_resize_bilinear card vs CPU within 1e-4 ({TIMING}; "
+          f"{card})")
+    imgs = frames[:8].float()
+    tpl = center_point_dict["(112, 112)"]
+    aligned = align_faces_batch(imgs, idx8, points, tpl, (112, 112),
+                                device=dev)
+    aligned_cpu = align_faces_batch(imgs.cpu(), idx8.cpu(), points.cpu(),
+                                    tpl, (112, 112), device="cpu")
+    al_err = check_close(torch, aligned.cpu(), aligned_cpu, 0.0, ALIGN_ATOL,
+                         "align_faces_batch")
+    ref = align_f64(torch, imgs.cpu(), idx8.cpu(), points.cpu(), tpl)
+    off = [float((a.cpu().double() - ref).abs().max())
+           for a in (aligned, aligned_cpu)]
+    if max(off) > ALIGN_ATOL:
+        fail(f"align_faces_batch: card and CPU (f32) are {off[0]:.3e} and "
+             f"{off[1]:.3e} from the f64 reference, want <= {ALIGN_ATOL}")
+    al_ms = median_ms(torch, lambda: align_faces_batch(
+        imgs, idx8, points, tpl, (112, 112), device=dev), runs=10)
+    phase("rest-align", f"align_faces_batch on {int(points.shape[0])} "
+          f"detected faces of 8x{SIZE}x{SIZE} f32 frames -> 112 px: card vs "
+          f"CPU max abs err {al_err:.2e} (atol {ALIGN_ATOL}); from the f64 "
+          f"reference: card {off[0]:.2e}, CPU {off[1]:.2e}; {al_ms:.3f} ms "
+          f"a call (CUDA events, median of 10; {card})")
+
+
+def align_f64(torch, images, image_idx, landmarks, template):
+    """align_faces_batch to 112 px in f64 on the CPU, by an independent
+    route: the f64 Umeyama matrices, inverted, as a grid_sample grid
+    (bilinear, zeros outside: cv2's constant border of 0)."""
+    import torch.nn.functional as F
+
+    from vn_celeb_face_recognition_tpu_torch.ops.image import invert_affine
+    from vn_celeb_face_recognition_tpu_torch.ops.similarity import (
+        umeyama_similarity,
+    )
+
+    f64 = torch.float64
+    inv = invert_affine(umeyama_similarity(
+        landmarks.to(f64), torch.as_tensor(template, dtype=f64)))
+    ys, xs = torch.meshgrid(torch.arange(112, dtype=f64),
+                            torch.arange(112, dtype=f64), indexing="ij")
+    src = torch.einsum("kij,hwj->khwi", inv,
+                       torch.stack([xs, ys, torch.ones_like(xs)], -1))
+    _, h, w, _ = images.shape
+    grid = torch.stack([src[..., 0] * 2 / (w - 1) - 1,
+                        src[..., 1] * 2 / (h - 1) - 1], -1)
+    out = [F.grid_sample(images[int(i)].to(f64).permute(2, 0, 1)[None],
+                         g[None], mode="bilinear", padding_mode="zeros",
+                         align_corners=True)[0]
+           for i, g in zip(image_idx, grid)]
+    return torch.stack(out).permute(0, 2, 3, 1)
+
+
+def rest_k8(torch, kernels, K8, engine, emo, chunk, card, results):
+    """rest-k8: K8 in bf16 on the emotion tails' inputs that ``engine``
+    (emotion_size REST_EMOTION_SIZE) gives them on ``chunk``, taken by a
+    forward hook on each layer's first block, held to the plain version in
+    f32 as phase K8 holds it at 224 px, and timed beside its bound."""
+    taken = {}
+    hooks = [layer[0].register_forward_hook(
+        lambda mod, args, y, n=n: taken.__setitem__(n, y.detach()))
+        for n, layer in (("l1", emo.layer1), ("l2", emo.layer2))]
+    with torch.no_grad():
+        engine.process_adaptive(chunk)
+    for h in hooks:
+        h.remove()
+    parts, row = [], {}
+    for name, layer, c, p in (("l1", emo.layer1, 256, 64),
+                              ("l2", emo.layer2, 512, 128)):
+        blocks = list(layer)[1:]
+        x = taken[name].permute(0, 2, 3, 1)  # as _trunk hands it to K8
+        k, side = int(x.shape[0]), int(x.shape[1])
+        if x.dtype != torch.bfloat16 or tuple(x.shape[1:]) != (
+                side, side, c) or side != REST_EMOTION_SIZE // (
+                    4 if name == "l1" else 8):
+            fail(f"rest-k8 {name}: the tail's input is {x.dtype} "
+                 f"{tuple(x.shape)}")
+        got = through_kernel(kernels, "bottleneck_chain",
+                             lambda: K8.bottleneck_chain(blocks, x),
+                             launches=3 * len(blocks))
+        e, rel_l2, rel_max, plain16 = check_bf16(
+            torch, got, K8.bottleneck_chain_plain(blocks,
+                                                  x.to(torch.float32)),
+            K8.bottleneck_chain_plain(blocks, x), f"rest-k8 bf16 {name}")
+        t_k, t_call, t_p = timed(
+            torch, "bottleneck_chain",
+            lambda: K8.bottleneck_chain(blocks, x),
+            lambda: K8.bottleneck_chain_plain(blocks, x))
+        pix = k * side * side
+        flops = len(blocks) * pix * 2 * (2 * c * p + 9 * p * p)
+        wbytes = len(blocks) * 2 * (2 * c * p + 9 * p * p)
+        b_ms, b_by = bound(2 * pix * c * 2 + wbytes, flops, PEAK_BF16)
+        row[name] = dict(k=k, side=side, max_abs_err=e, rel_l2=rel_l2,
+                         ms=t_k, call_ms=t_call, plain_ms=t_p, bound_ms=b_ms,
+                         bound_by=b_by)
+        parts.append(
+            f"{name} K={k} C={c} {side}x{side} {len(blocks)} blocks vs plain "
+            f"f32: max abs err {e:.3e}, rel L2 {rel_l2:.2e}, max/max|ref| "
+            f"{rel_max:.2e} (plain bf16 rel L2 {plain16:.2e}); kernel "
+            f"{t_k:.3f} ms, call {t_call:.3f} ms, plain (cuDNN) {t_p:.3f} "
+            f"ms, bound {b_ms:.3f} ms ({b_by})")
+    results["bottleneck_chain"][f"emotion_size_{REST_EMOTION_SIZE}"] = row
+    phase("rest-k8", f"bottleneck_chain bf16 on the engine's own tail "
+          f"inputs at emotion_size {REST_EMOTION_SIZE}, 3 launches a block: "
+          + "; ".join(parts) + f" ({TIMING}; {card})")
+
+
 def main():
     if not os.path.isdir(os.path.join(HERE, PKG)):
         fail(f"no {PKG} package beside {os.path.basename(__file__)}; run "
@@ -5379,6 +5774,12 @@ def main():
     # ---- 30. the mesh on a one-rank NCCL group -----------------------------
     phase_parallel(torch, card)
     lap("30")
+
+    # ---- 31. the rest: emotion_size, num_projections, weights_dir, --------
+    # the library crops and batched alignment
+    phase_rest(torch, kernels, K4, K8, dev, card, results)
+    torch.cuda.empty_cache()
+    lap("31")
 
     kernel_rows = []
     for kname, (src, replaces) in KERNEL_SOURCES.items():

@@ -47,7 +47,8 @@ def test_port_imports_without_jax_or_flax():
                 "models.resnet_encoder", "training.detector",
                 "training.multibox_loss", "cli.fit_detector", "parallel",
                 "parallel.mesh", "parallel.launch", "parallel.collectives",
-                "parallel.train_dp", "utils.blocks"):
+                "parallel.train_dp", "utils.blocks", "utils.download",
+                "cli.false_prediction_vlz"):
         assert f"{PKG}.{mod}" in mods
     code = (
         "import sys\n"

@@ -17,29 +17,14 @@ and the train manifest's remap overwrites the describe file's.
 """
 
 import argparse
-import csv
 
-from ..utils.io import read_json, write_json
-
-
-def _typed(cells):
-    """A CSV column's cells as pandas types them: all integers, else all
-    floats, else strings."""
-    for kind in (int, float):
-        try:
-            return [kind(c) for c in cells]
-        except ValueError:
-            pass
-    return list(cells)
+from ..utils.io import read_csv_columns, read_json, write_json
 
 
 def create_file_describe_ds(describe_file, output_file):
-    with open(describe_file, newline="") as fp:
-        rows = list(csv.DictReader(fp))
-    labels = _typed([r["label"] for r in rows])
-    images = _typed([r["image"] for r in rows])
+    columns = read_csv_columns(describe_file)
     groups = {}
-    for label, image in zip(labels, images):
+    for label, image in zip(columns["label"], columns["image"]):
         groups.setdefault(label, []).append(image)
     by_label = {str(label): groups[label] for label in sorted(groups)}
     write_json(output_file, by_label)

@@ -167,11 +167,8 @@ def _build_iresnet(depth, pretrained=False, checkpoint_path="",
 def _build_resnet_2branch_50(pretrained=False, checkpoint_path=None,
                              num_classes=1000, num_projections=300,
                              weights_path=None, dtype=None):
-    if num_projections != 300:
-        raise NotImplementedError(
-            f"the emotion head is ported with 300 projections, not "
-            f"{num_projections}")
     module = resnet_2branch_50(num_classes=num_classes,
+                               num_projections=num_projections,
                                dtype=coerce_dtype(dtype))
     if not _load_first(module, (weights_path, checkpoint_path)):
         _seeded(module)

@@ -20,7 +20,7 @@ PNGs with ``utils.frames.write_png``.
 
 Weights: the published torch-keyed ``{p,r,o}net.npz`` vendored in the JAX
 package, read by file path with ``numpy.load`` (the port imports nothing
-from the JAX package).
+from the JAX package), or those of ``weights_dir`` (``load_mtcnn_weights``).
 """
 
 import os
@@ -37,12 +37,22 @@ from ..ops.nms import check_set_caps
 from ..ops.pyramid_pnet import normalize, pyramid_pnet
 from ..utils.device import select_device
 from ..utils.frames import resize_bilinear, write_png
-from .layers import conv, linear, load_npz, max_pool_ceil, prelu
+from .layers import (
+    conv,
+    linear,
+    max_pool_ceil,
+    prelu,
+    read_state_dict,
+    seeded_init_,
+)
 
 _REPO_ROOT = os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
 WEIGHTS_DIR = os.path.join(
     _REPO_ROOT, "vn_celeb_face_recognition_tpu", "models", "weights_mtcnn")
+
+
+NETS = ("pnet", "rnet", "onet")
 
 
 # ---------------------------------------------------------------------------
@@ -144,6 +154,23 @@ class ONet(nn.Module):
 # ---------------------------------------------------------------------------
 
 
+def load_mtcnn_weights(weights_dir=None):
+    """The three nets' torch-keyed state_dicts from ``weights_dir`` (default
+    the vendored ``WEIGHTS_DIR``), as the JAX package's
+    ``load_mtcnn_variables`` finds them: each net from ``{net}.npz``, else
+    from ``{net}.pt`` (``layers.read_state_dict``). Returns ``{net:
+    state_dict}``, or None when the directory lacks a net's file."""
+    d = WEIGHTS_DIR if weights_dir is None else str(weights_dir)
+    paths = {}
+    for net in NETS:
+        found = [p for p in (os.path.join(d, net + ext)
+                             for ext in (".npz", ".pt")) if os.path.isfile(p)]
+        if not found:
+            return None
+        paths[net] = found[0]
+    return {net: read_state_dict(path) for net, path in paths.items()}
+
+
 def _stage1_boxes(score, reg, scale, threshold):
     """Dense PNet outputs -> candidate boxes (generateBoundingBox).
     score [B, hc, wc], reg [B, hc, wc, 4]."""
@@ -151,6 +178,10 @@ def _stage1_boxes(score, reg, scale, threshold):
     dev = score.device
     jj = torch.arange(wc, dtype=torch.float32, device=dev)[None, :]
     ii = torch.arange(hc, dtype=torch.float32, device=dev)[:, None]
+    # a tensor divisor (a fill, no copy): CUDA divides a tensor by a Python
+    # number as a multiply by its reciprocal, whose floor differs by one at
+    # exact multiples; so the card computes the CPU's boxes
+    scale = torch.full((), scale, dtype=torch.float32, device=dev)
     q1x = torch.floor((2.0 * jj + 1.0) / scale).expand(hc, wc)
     q1y = torch.floor((2.0 * ii + 1.0) / scale).expand(hc, wc)
     q2x = torch.floor((2.0 * jj + 12.0) / scale).expand(hc, wc)
@@ -211,6 +242,11 @@ class MTCNN:
     for (a missing card raises). ``image_size``, ``margin``,
     ``post_process``, ``select_largest``, ``selection_method`` and
     ``keep_all`` shape the host API's selection and face extraction.
+    ``weights_dir`` (default: the vendored weights) holds the nets'
+    ``{p,r,o}net.npz`` or ``.pt`` files; a directory without all three
+    gives the nets a seeded initialisation (``layers.seeded_init_``, seed
+    0) and a warning, where the JAX package silently initialises them at
+    random.
     """
 
     _BASE_CAPS = {
@@ -228,7 +264,7 @@ class MTCNN:
                  select_largest=True, selection_method=None, keep_all=False,
                  pnet_cap_per_scale=None, cross_cap=None, rnet_cap=None,
                  onet_cap=None, out_cap=64, dtype=torch.float32,
-                 device="cuda"):
+                 device="cuda", weights_dir=None):
         self.image_size = image_size
         self.margin = margin
         self.post_process = post_process
@@ -251,11 +287,21 @@ class MTCNN:
                        pnet_cap_per_scale=pnet_cap_per_scale,
                        cross_cap=cross_cap, rnet_cap=rnet_cap,
                        onet_cap=onet_cap)
-        self.pnet = load_npz(PNet(), os.path.join(WEIGHTS_DIR, "pnet.npz"))
-        self.rnet = load_npz(RNet(), os.path.join(WEIGHTS_DIR, "rnet.npz"))
-        self.onet = load_npz(ONet(), os.path.join(WEIGHTS_DIR, "onet.npz"))
-        for net in (self.pnet, self.rnet, self.onet):
+        self.pnet, self.rnet, self.onet = PNet(), RNet(), ONet()
+        weights = load_mtcnn_weights(weights_dir)
+        if weights is None and weights_dir is None:
+            raise FileNotFoundError(f"no MTCNN weights in {WEIGHTS_DIR}")
+        for name in NETS:
+            net = getattr(self, name)
+            if weights is None:
+                seeded_init_(net, torch.Generator().manual_seed(0))
+            else:
+                net.load_state_dict(weights[name], strict=True)
             net.to(self.device).eval()
+        if weights is None:
+            warnings.warn(f"no {{p,r,o}}net .npz or .pt weights in "
+                          f"{weights_dir}; the MTCNN nets are seeded",
+                          stacklevel=2)
         self._last_caps = None
 
     # -- scale pyramid ----------------------------------------------------

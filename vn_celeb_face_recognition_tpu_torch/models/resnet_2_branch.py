@@ -1,9 +1,9 @@
 """2-branch emotion ResNet-50: class head (emotion tags) + projection.
 
 Counterpart of ``vn_celeb_face_recognition_tpu/models/resnet_2_branch.py``
-with torch's keys: a ResNet-50 trunk, a global mean over the 7x7 map,
+with torch's keys: a ResNet-50 trunk, a global mean over the last map,
 then two f32 linear heads, ``fc`` (``num_classes`` tags) and ``proj``
-(300-d).
+(``num_projections`` wide, 300 in the published net).
 
 ``forward(faces)`` takes [K, 112, 112, 3] aligned faces in 0-255 and
 returns (x_cls, x_proj): the JAX net's ``apply`` on
@@ -13,9 +13,10 @@ blocks 1-2 and layer2's blocks 1-3 run as kernel K8 (``ops.bottleneck``);
 block 0 of each layer, layer3/4 and the heads are cuDNN/cuBLAS.
 
 ``forward_normalized(x)`` is the JAX net's ``apply`` itself: it takes
-NHWC input already through that transform (faces of any size, resized to
-224 by the caller) and runs the stem as the net's own conv, BatchNorm,
-ReLU and max pool in cuDNN; the trunk after the stem is ``forward``'s.
+NHWC input already through that transform (faces of any size, resized by
+the caller: the engine's ``emotion_size``) and runs the stem as the net's
+own conv, BatchNorm, ReLU and max pool in cuDNN; the trunk after the stem
+is ``forward``'s, K8 included (it takes any map size).
 """
 
 import torch
@@ -30,7 +31,7 @@ from .resnet_common import ResLayer
 
 class ResNet2Branch(nn.Module):
     def __init__(self, layers=(3, 4, 6, 3), num_classes=1000,
-                 dtype=torch.float32):
+                 num_projections=300, dtype=torch.float32):
         super().__init__()
         self.dtype = dtype
         self.layers = tuple(layers)
@@ -41,7 +42,7 @@ class ResNet2Branch(nn.Module):
         self.layer3 = ResLayer(256, layers[2], 2, 512)
         self.layer4 = ResLayer(512, layers[3], 2, 1024)
         self.fc = nn.Linear(2048, num_classes)
-        self.proj = nn.Linear(2048, 300)
+        self.proj = nn.Linear(2048, num_projections)
 
     def forward(self, faces, dtype=None):
         """``dtype`` (default: the net's own) is the compute dtype of the
@@ -49,8 +50,10 @@ class ResNet2Branch(nn.Module):
         return self._trunk(emotion_stem(self.conv1, self.bn1, faces,
                                         dtype or self.dtype))
 
-    def forward_normalized(self, x):
-        x = x.to(self.dtype).permute(0, 3, 1, 2)
+    def forward_normalized(self, x, dtype=None):
+        """``dtype`` (default: the net's own) is the compute dtype of the
+        stem and the trunk after it."""
+        x = x.to(dtype or self.dtype).permute(0, 3, 1, 2)
         x = F.max_pool2d(F.relu(batch_norm(self.bn1, conv(self.conv1, x))),
                          3, 2, 1)
         return self._trunk(x.permute(0, 2, 3, 1))

@@ -122,6 +122,20 @@ def make_priors(image_size, min_sizes, steps, clip=False):
     return np.clip(priors, 0.0, 1.0) if clip else priors
 
 
+def gather_rows(arrays, idx):
+    """Rows ``idx`` of every [K, ...] tensor of a nest of dicts, lists and
+    tuples (named tuples included), in the same nest; None stays None."""
+    if arrays is None:
+        return None
+    if isinstance(arrays, dict):
+        return {k: gather_rows(v, idx) for k, v in arrays.items()}
+    if isinstance(arrays, tuple) and hasattr(arrays, "_fields"):
+        return type(arrays)(*(gather_rows(a, idx) for a in arrays))
+    if isinstance(arrays, (list, tuple)):
+        return type(arrays)(gather_rows(a, idx) for a in arrays)
+    return arrays[idx]
+
+
 def take_rows(a, idx):
     """Rows ``idx`` [B, k] of a [B, N, ...] tensor -> [B, k, ...]."""
     ix = idx.reshape(idx.shape + (1,) * (a.dim() - 2))

@@ -6,8 +6,12 @@ like with like.
 
 * ``area_resize`` / ``pyramid_area_resize``: adaptive-average-pool resize
   as two matmuls against the exact pooling matrices (``_area_weights``).
-* ``grouped_crop_area_resize``: integer crop + adaptive average pool
-  (kernel K4, ``ops.crop``), bit-exact on uint8-valued input.
+* ``grouped_crop_area_resize`` / ``batched_crop_area_resize``: integer
+  crop + adaptive average pool (kernel K4, ``ops.crop``), bit-exact on
+  uint8-valued input, grouped per frame or over a flat face set.
+* ``crop_resize_bilinear`` / ``batched_crop_resize``: integer crop +
+  bilinear sampling at the pool cells' centres, clamped to the box (plain
+  torch gathers, as the JAX package computes them outside any kernel).
 * ``warp_affine`` / ``batched_warp_affine``: cv2 ``BORDER_CONSTANT``
   bilinear warp, border per tap, tap validity from the unclipped floor.
 """
@@ -85,6 +89,63 @@ def pyramid_area_resize(images, sizes):
 
 
 # ---------------------------------------------------------------------------
+# Integer crop + bilinear resample
+# ---------------------------------------------------------------------------
+
+
+def _bilinear_gather(images, bi, yy, xx, lo_y, hi_y, lo_x, hi_x):
+    """Sample images [B, H, W, C] at rows ``bi`` and float coordinates
+    yy/xx [K, S, S], clamped to the inclusive float bounds [K, 1, 1];
+    returns [K, S, S, C]."""
+    yy = torch.minimum(torch.maximum(yy, lo_y), hi_y)
+    xx = torch.minimum(torch.maximum(xx, lo_x), hi_x)
+    y0 = torch.floor(yy)
+    x0 = torch.floor(xx)
+    wy = (yy - y0)[..., None]
+    wx = (xx - x0)[..., None]
+    h, w = images.shape[1:3]
+    y0i = torch.clamp(y0.to(torch.int64), 0, h - 1)
+    x0i = torch.clamp(x0.to(torch.int64), 0, w - 1)
+    y1i = torch.clamp(y0i + 1, 0, h - 1)
+    x1i = torch.clamp(x0i + 1, 0, w - 1)
+    top = images[bi, y0i, x0i] * (1.0 - wx) + images[bi, y0i, x1i] * wx
+    bot = images[bi, y1i, x0i] * (1.0 - wx) + images[bi, y1i, x1i] * wx
+    return top * (1.0 - wy) + bot * wy
+
+
+def batched_crop_resize(images, boxes, image_idx, size):
+    """Crop a padded face set's (1-based, inclusive, integer-valued float)
+    xyxy boxes [K, 4] out of images [B, H, W, C] (row ``image_idx`` [K])
+    and resize each to [size, size, C]: bilinear samples at the area-pool
+    cell centres, clamped to the crop window ``imgs[y1-1:y2, x1-1:x2]``.
+    Returns [K, size, size, C] f32."""
+    images = images.to(torch.float32)
+    boxes = boxes.to(device=images.device, dtype=torch.float32)
+    x1, y1, x2, y2 = (boxes[:, i, None, None] for i in range(4))
+    # a tensor divisor (a fill, no copy): CUDA divides by a Python number
+    # as a multiply by its reciprocal (an ulp off); the CPU divides
+    size_t = torch.full((), float(size), device=images.device)
+    sy = (y2 - y1 + 1.0) / size_t
+    sx = (x2 - x1 + 1.0) / size_t
+    i = torch.arange(size, dtype=torch.float32, device=images.device)
+    src_y = (y1 - 1.0) + (i[:, None] + 0.5) * sy - 0.5  # [K, S, 1]
+    src_x = (x1 - 1.0) + (i[None, :] + 0.5) * sx - 0.5  # [K, 1, S]
+    k = boxes.shape[0]
+    yy = src_y.expand(k, size, size)
+    xx = src_x.expand(k, size, size)
+    bi = image_idx.to(device=images.device, dtype=torch.int64)[:, None, None]
+    return _bilinear_gather(images, bi, yy, xx, y1 - 1.0, y2 - 1.0,
+                            x1 - 1.0, x2 - 1.0)
+
+
+def crop_resize_bilinear(img, box, size):
+    """One image [H, W, C] and one box [4] -> [size, size, C]
+    (``batched_crop_resize`` of a single face)."""
+    idx = torch.zeros(1, dtype=torch.int64, device=img.device)
+    return batched_crop_resize(img[None], box[None], idx, size)[0]
+
+
+# ---------------------------------------------------------------------------
 # Integer crop + adaptive average pool
 # ---------------------------------------------------------------------------
 
@@ -96,6 +157,22 @@ def grouped_crop_area_resize(images, boxes, size):
     floats -> [B, K, S, S, 3] f32. Kernel K4 on the card, its plain
     version on the CPU (``ops.crop``)."""
     return _crop.grouped_crop_area_resize(images, boxes, size)
+
+
+def batched_crop_area_resize(images, boxes, image_idx, size, integral=None):
+    """``grouped_crop_area_resize`` over a flat face set: boxes [K, 4] with
+    the same count of faces per frame (K % B == 0) and ``image_idx`` [K]
+    block-ordered (faces of frame 0 first, then frame 1, ...), the layout
+    of the capacity-padded cascade; ``image_idx`` is therefore not read.
+    ``integral`` is accepted, as the JAX package accepts it, and ignored.
+    Returns [K, size, size, 3] f32: kernel K4 (integral image, then the
+    pool) for CUDA tensors, its plain version for CPU tensors."""
+    b, k = images.shape[0], boxes.shape[0]
+    if b == 0 or k % b:
+        raise ValueError(f"{k} boxes do not split evenly over {b} frames")
+    grouped = _crop.grouped_crop_area_resize(
+        images, boxes.reshape(b, k // b, 4), size)
+    return grouped.reshape(k, size, size, images.shape[-1])
 
 
 # ---------------------------------------------------------------------------

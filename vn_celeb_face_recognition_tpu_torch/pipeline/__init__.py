@@ -3,7 +3,12 @@ per-image recognition library (``recognition``: detect and align single
 images, recognise and emotion-tag their faces), with the alignment
 templates and warps (``align``)."""
 
-from .align import align_crops, alignment, center_point_dict
+from .align import (
+    align_crops,
+    align_faces_batch,
+    alignment,
+    center_point_dict,
+)
 from .recognition import (
     Classifier,
     EmotionModel,
@@ -27,6 +32,7 @@ __all__ = [
     "center_point_dict",
     "alignment",
     "align_crops",
+    "align_faces_batch",
     "load_model_classify",
     "find_embedding",
     "find_emotion",

@@ -11,6 +11,10 @@ them. Counterpart of ``vn_celeb_face_recognition_tpu/pipeline/align.py``.
   the JAX package's per-crop warp exactly.
 * ``alignment(img, src, dst, w, h)``: the single-face API with the
   reference's argument order, through ``align_crops``.
+* ``align_faces_batch(images, image_idx, landmarks, template, out_size)``:
+  float frames and a padded face set in, the JAX package's batched
+  alignment: the batched Umeyama solve, then ``ops.image``'s
+  ``batched_warp_affine`` (plain torch gathers, as in the JAX package).
 
 Both round integer crops and clip them to 0-255 in their dtype, as the
 JAX package does (``torch.round`` rounds half to even, as ``np.round``).
@@ -19,6 +23,7 @@ JAX package does (``torch.round`` rounds half to even, as ``np.round``).
 import numpy as np
 import torch
 
+from ..ops.image import batched_warp_affine
 from ..ops.similarity import umeyama_similarity
 from ..ops.warp import similarity_warp
 from ..utils.device import select_device
@@ -106,3 +111,23 @@ def alignment(cv_img, src, dst, dst_w, dst_h, device="cuda"):
     Returns [dst_h, dst_w, 3] in the image's dtype."""
     return align_crops([np.asarray(cv_img)], np.asarray(dst)[None], src,
                        (dst_w, dst_h), device=device)[0]
+
+
+def align_faces_batch(images, image_idx, landmarks, template, out_size,
+                      device="cuda"):
+    """Warp every face of a padded set so its landmarks land on
+    ``template``.
+
+    images: [B, H, W, 3] float frames; image_idx: [K] frame of each face;
+    landmarks: [K, 5, 2] in frame coordinates; template: [5, 2];
+    out_size: (w, h). Arrays or tensors; runs on ``device`` (the card
+    unless ``"cpu"`` is asked for). Returns a [K, h, w, 3] f32 tensor on
+    that device."""
+    dev = select_device(device)
+    f32 = dict(dtype=torch.float32, device=dev)
+    mats = umeyama_similarity(torch.as_tensor(landmarks, **f32),
+                              torch.as_tensor(template, **f32))
+    return batched_warp_affine(
+        torch.as_tensor(images, **f32),
+        torch.as_tensor(image_idx, dtype=torch.int64, device=dev), mats,
+        (int(out_size[1]), int(out_size[0])))

@@ -15,11 +15,15 @@ Counterpart of ``vn_celeb_face_recognition_tpu/pipeline/engine.py``
      (kernel K1; no window stack is cut);
   4. standardisation, the embedding encoder and the MLP give
      log-probabilities, the class and its probability;
-  5. optionally the emotion head: the 112 px faces resized to 224,
-     ImageNet-normalised and through the 2-branch net in the compute
-     dtype (the resize, normalisation and stem in kernel K7, the
-     layer1/layer2 tails in kernel K8), softmax and the top
-     ``emotion_topk`` tags;
+  5. optionally the emotion head: the 112 px faces area-resized to
+     ``emotion_size``, ImageNet-normalised and through the 2-branch net in
+     the compute dtype, softmax and the top ``emotion_topk`` tags. At
+     ``emotion_size`` 224 the resize, normalisation and stem are kernel K7;
+     at any other size they are the JAX engine's ``area_resize`` and
+     ``imagenet_normalize`` in torch and the net's own stem in cuDNN
+     (``ResNet2Branch.forward_normalized``), as the JAX engine runs its
+     stem kernel at 224 only. The layer1/layer2 tails run in kernel K8 at
+     every size (the kernel takes any map size);
 
 and results scatter back to the padded layout. ``identify`` turns the
 padded outputs into per-frame names on the host.
@@ -46,7 +50,11 @@ import torch
 import torch.distributed as dist
 from torch import nn
 
-from ..ops.image import fixed_image_standardization
+from ..ops.image import (
+    area_resize,
+    fixed_image_standardization,
+    imagenet_normalize,
+)
 from ..ops.similarity import umeyama_similarity
 from ..ops.warp import similarity_warp_frames
 from ..parallel.collectives import all_gather_rows
@@ -77,8 +85,9 @@ class FusedRecognitionEngine:
         multiple of this (a ragged tail chunk keeps the shapes of full
         chunks); outputs are sliced back.
       emotion: optional ``models.resnet_2_branch.ResNet2Branch`` run on
-        the faces at 224 px (``target_fs`` must be 112); adds
-        ``emotion_idx`` and ``emotion_prob`` [B, K, emotion_topk].
+        the faces resized to ``emotion_size`` (``target_fs`` must be 112);
+        adds ``emotion_idx`` and ``emotion_prob`` [B, K, emotion_topk].
+      emotion_size: side of the emotion net's input (224 runs kernel K7).
       emotion_topk: emotion tags kept per face.
       mesh: a ``parallel.Mesh`` to shard each chunk over its data axis
         (the detector must be on the mesh's device); chunks are then
@@ -88,7 +97,7 @@ class FusedRecognitionEngine:
     def __init__(self, detector, encoder, classifier, target_fs=112,
                  compute_dtype=torch.float32, face_window=224,
                  face_cap=None, face_hint=None, batch_multiple=1,
-                 emotion=None, emotion_topk=6, mesh=None):
+                 emotion=None, emotion_size=224, emotion_topk=6, mesh=None):
         self.detector = detector
         self.device = detector.device
         self.mesh = mesh
@@ -121,6 +130,7 @@ class FusedRecognitionEngine:
                              f"{self.target_fs}")
         self.emotion = (None if emotion is None
                         else emotion.to(self.device).eval())
+        self.emotion_size = int(emotion_size)
         self.emotion_topk = int(emotion_topk)
         if mesh is not None:
             self.batch_multiple = math.lcm(self.batch_multiple, mesh.n_data)
@@ -220,7 +230,7 @@ class FusedRecognitionEngine:
         prob = torch.exp(torch.gather(logp, 1, pred[:, None])[:, 0])
         per_face = {"pred": pred, "prob": prob, "embeddings": emb}
         if self.emotion is not None:
-            logits, _ = self.emotion(faces, self.compute_dtype)
+            logits, _ = self._emotion_logits(faces)
             eprob = torch.softmax(logits.to(torch.float32), dim=-1)
             # stable descending sort: ties keep the lower index first,
             # as jax.lax.top_k does (torch.topk leaves them unordered)
@@ -247,6 +257,16 @@ class FusedRecognitionEngine:
         if overflow is not None:
             out["face_cap_overflow"] = overflow
         return out
+
+    def _emotion_logits(self, faces):
+        """The emotion net on the 112 px faces: K7's fused resize and stem
+        at ``emotion_size`` 224, else the JAX engine's resize,
+        normalisation and the net's own stem."""
+        size = self.emotion_size
+        if size == 224:
+            return self.emotion(faces, self.compute_dtype)
+        x = imagenet_normalize(area_resize(faces, (size, size)) / 255.0)
+        return self.emotion.forward_normalized(x, self.compute_dtype)
 
     def _as_frames(self, frames_u8):
         """The chunk as a tensor: on the device, or under a mesh where it

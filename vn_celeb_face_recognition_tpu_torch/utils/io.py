@@ -1,8 +1,9 @@
 """Host-side file helpers of the CLIs and the trainers: JSON, pickles,
 folders, tracker rows, ``result.csv`` and the ``label,name`` tables.
 
-Counterpart of ``vn_celeb_face_recognition_tpu/utils/io.py`` (the parts the
-CLIs and trainers use), with the same signatures and file formats. Tables
+Counterpart of ``vn_celeb_face_recognition_tpu/utils/io.py``, with the same
+signatures and file formats (``save_pandas_df`` is ``save_csv`` here, and
+``read_image`` is ``utils.frames.read_image``). Tables
 are read and written with the ``csv`` module, not pandas.
 """
 
@@ -31,6 +32,11 @@ def load_pickle(path):
         return pickle.load(fp)
 
 
+def save_pickle(path, obj):
+    with open(path, "wb") as fp:
+        pickle.dump(obj, fp)
+
+
 def create_folder(path):
     os.makedirs(str(path), exist_ok=True)
 
@@ -53,6 +59,26 @@ def _csv_field(value):
     if hasattr(value, "item"):  # numpy scalars
         value = value.item()
     return repr(value) if isinstance(value, float) else value
+
+
+def typed_column(cells):
+    """A CSV column's cells as pandas types them: all integers, else all
+    floats, else strings."""
+    for kind in (int, float):
+        try:
+            return [kind(c) for c in cells]
+        except ValueError:
+            pass
+    return list(cells)
+
+
+def read_csv_columns(path):
+    """A CSV file with a header row -> ``{column: cells}`` in the header's
+    order, each column typed by ``typed_column`` (blank lines skipped)."""
+    with open(path, newline="") as fp:
+        header, *rows = [r for r in csv.reader(fp) if r]
+    return {name: typed_column([r[i] for r in rows])
+            for i, name in enumerate(header)}
 
 
 def append_log_to_file(file_path, list_items):
