@@ -51,8 +51,8 @@ Phases, one line of output each (a failed phase exits non-zero):
       whose int32 prefix sums wrap; the integral image timed alone and
       with both pools;
    7. K5 (crop_net_trunk) vs the nets' cuDNN modules at the stock line's
-      crop counts (bf16 on the tensor cores, f32 on 1,024 crops), RNet
-      and ONet timed apart with their TFLOP/s and GB/s;
+      crop counts (bf16 on the tensor cores, f32 in 3xTF32 on 1,024
+      crops), RNet and ONet timed apart with their TFLOP/s and GB/s;
    8. the default slice: chunks with launch counters reset just before
       and read just after, held to exact per-run counts;
    9. its profile: device busy time of one chunk under torch.profiler,
@@ -69,8 +69,9 @@ Phases, one line of output each (a failed phase exits non-zero):
       segment's device time beside its own bytes/FLOP floor;
   16. K7 (emotion_stem) vs resize + normalise + cuDNN stem, 512 faces;
   17. K8 (bottleneck_chain) vs the blocks' cuDNN modules, layer1 and
-      layer2 tails at 512 faces and at 3 (a ragged last tile), with each
-      convolution's device time, TFLOP/s and GB/s;
+      layer2 tails at 512 faces and at 3 (a ragged last tile), f32
+      (3xTF32) on 16 faces, with each convolution's device time, TFLOP/s
+      and GB/s;
   18. the production slice, counters held the same way;
   19. its profile;
   20. its card vs CPU in f32 on 2 frames;
@@ -105,7 +106,11 @@ Phases, one line of output each (a failed phase exits non-zero):
       per-run counts and K1-K8 each launched; the card against the CPU in
       f32 on a chunk of 2 frames of (a) and (b) (equal names and tags,
       boxes within 1e-4 normalised); median host ms a chunk, the CLI's
-      FPS line and stage means, one profiled chunk of each.
+      FPS line and stage means, one profiled chunk of each; cli-k8-f32,
+      K8's f32 grid (3xTF32) on the emotion tails' own inputs of (b)'s
+      first chunk (taken by a forward hook), held to the plain version
+      in f32 at 1e-4 and timed beside its 3xtf32 floor, its f32-peak
+      bound and cuDNN.
   23. the trainers through ``cli.train.main`` and ``cli.eval.main``,
       datasets written from a seed: (a) cfg/train_cfg_emb_classify.json
       (MLP 512-2048-1000 on 1,000 classes x 6 .npz embeddings; epochs cut
@@ -159,8 +164,10 @@ Phases, one line of output each (a failed phase exits non-zero):
       demo_video.process_video --fused_engine (MTCNN f32, 2 chunks of 64)
       through frame_chunks on the .avi, launches held to CLI path (a)'s
       per-run counts and tracker.csv equal to a run on cv2's own frames
-      of the file, K5's f32 grid timed at that run's crops beside its
-      bound, and celeb_statistic.main on the file.
+      of the file, K5's f32 grid (3xTF32) held to the plain version in f32
+      at 1e-4 on all of that run's crops and timed there beside its
+      3xtf32 floor and its f32-peak bound, and celeb_statistic.main on
+      the file.
   27. the SE-IR encoder: se-ir, resnet101 at full depth on 64 faces of 112
       px in f32 (TF32 off), ms a batch, faces/s and TFLOP/s beside the
       bound, card vs CPU cosine >= 0.999 on 2 faces; arcmargin,
@@ -278,11 +285,11 @@ KERNEL_GRIDS = {
     "similarity_warp": ("similarity_warp_kernel",),
     "mnet_stage1": ("segment_kernel", "segment_mma_first", "segment_mma"),
     "emotion_stem": ("emotion_stem_kernel", "emotion_stem_mma"),
-    "bottleneck_chain": ("conv_gemm_bf16", "pointwise_f32", "conv3x3_f32"),
+    "bottleneck_chain": ("conv_gemm_bf16", "conv_gemm_tf32x3"),
     "nms_keep_mask": ("nms_keep_tiled",),
     "crop_area_resize": ("band_totals_kernel", "band_scan_kernel",
                          "crop_pool_kernel"),
-    "crop_net_trunk": ("crop_net_trunk_mma", "crop_net_trunk_f32"),
+    "crop_net_trunk": ("crop_net_trunk_mma", "crop_net_trunk_tf32x3"),
 }
 # K8's convolutions by the template arguments <BN, TAPS, RES> of its grid
 # in the profiler's (demangled or mangled) kernel name
@@ -349,8 +356,7 @@ REC_LAUNCHES = {
                    "similarity_warp": 1, "emotion_stem": 1,
                    "bottleneck_chain": 15}}
 # NVIDIA H100 SXM data-sheet peaks (dense), at the 700 W limit
-PEAK_BF16, PEAK_F32, PEAK_BYTES = 989e12, 67e12, 3.35e12
-PEAK_TF32 = 495e12
+PEAK_BF16, PEAK_TF32, PEAK_F32, PEAK_BYTES = 989e12, 495e12, 67e12, 3.35e12
 # a bf16 kernel is held to its plain version computed in f32 on the same
 # inputs: the kernels accumulate in f32 and round to bf16 (8 significant
 # bits, eps 2**-8) at their outputs and, for K6 and K8, at a few staged
@@ -365,6 +371,7 @@ TIMING = ("kernel, plain and library: device time from torch.profiler, mean "
 
 def fail(msg):
     print(f"FAIL: {msg}", flush=True)
+    print(f"FAIL: {msg}", file=sys.stderr, flush=True)
     sys.exit(1)
 
 
@@ -403,36 +410,69 @@ def is_grid(key, names):
                          key) for n in names)
 
 
+def profiled(torch, activities, fn, warm=None):
+    """torch.profiler over one ``fn()``, after a warm-up step under the
+    same session whose events are dropped (``warm()``, by default
+    ``fn()``). The tracer starts late: without the warm-up an H100 left the
+    first grids of a session unrecorded, up to every grid of a short one
+    and more of them late in a long process."""
+    from torch.profiler import profile, schedule
+
+    with profile(activities=activities,
+                 schedule=schedule(wait=0, warmup=1, active=1,
+                                   repeat=1)) as prof:
+        for step in (warm or fn, fn):
+            step()
+            torch.cuda.synchronize()
+            prof.step()
+    return prof
+
+
 def device_ms(torch, fn, names=(), runs=20):
     """Device time (ms) per call of ``fn()`` spent in the device functions
     whose name contains one of ``names`` (every one when it is empty), from
     torch.profiler: the kernels alone, without the host's launch overhead
-    or the wrapper's other work."""
+    or the wrapper's other work. The named grids must be recorded in whole
+    calls and within the CUDA-event span of the calls (K5's grids still
+    lost some after the warm-up step, on an H100); a session that misses
+    that is taken again, twice, and then the time is the CUDA-event time
+    around one call, with a note."""
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity
 
     fn()
     torch.cuda.synchronize()
-    # a profiling session that records no device event at all (seen once
-    # on an H100) is taken again, once
-    for attempt in range(2):
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(runs):
-                fn()
-            torch.cuda.synchronize()
-        events = [e for e in prof.key_averages()
-                  if e.device_type == DeviceType.CUDA
-                  and not getattr(e, "is_user_annotation", False)]
-        if events:
-            break
-        print(f"note: torch.profiler recorded no device event for "
-              f"{names or 'fn'}; profiling again", flush=True)
-    total = sum(e.self_device_time_total for e in events
-                if not names or is_grid(e.key, names))
-    if total <= 0:
-        fail(f"torch.profiler recorded no device time for {names or 'fn'}; "
-             f"it saw {sorted({e.key[:80] for e in events})}")
-    return total / runs / 1e3
+    span = {}
+
+    def calls():
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(runs):
+            fn()
+        end.record()
+        torch.cuda.synchronize()
+        span["ms"] = start.elapsed_time(end)
+
+    for _ in range(3):
+        prof = profiled(torch, [ProfilerActivity.CUDA], calls)
+        grids = [e for e in prof.key_averages()
+                 if e.device_type == DeviceType.CUDA
+                 and not getattr(e, "is_user_annotation", False)
+                 and (not names or is_grid(e.key, names))]
+        total = sum(e.self_device_time_total for e in grids) / 1e3
+        counts = sorted({(e.key[:60], e.count) for e in grids})
+        if total > 0 and (not names or (
+                all(c % runs == 0 for _, c in counts)
+                and total <= 1.01 * span["ms"])):
+            return total / runs
+        print(f"note: torch.profiler recorded {counts or 'no grid'} of "
+              f"{names or 'fn'} in {runs} calls ({total:.3f} ms in a "
+              f"{span['ms']:.3f} ms span)", flush=True)
+    ms = median_ms(torch, fn)
+    print(f"note: the device time of {names or 'fn'} is taken by CUDA "
+          f"events around the call instead: {ms:.3f} ms", flush=True)
+    return ms
 
 
 def timed(torch, name, fn, plain, plain_runs=20):
@@ -493,6 +533,13 @@ def bound(nbytes, flops, peak_flops):
     t_bytes, t_ops = nbytes / PEAK_BYTES, flops / peak_flops
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
                                        else "operations")
+
+
+def bound_3xtf32(nbytes, flops):
+    """The card's floor (ms) for f32-accurate work, and which of the two
+    bounds it: bytes at the memory rate, and ``flops`` in 3xTF32 (three
+    TF32 products for each f32 product) at the TF32 tensor-core peak."""
+    return bound(nbytes, 3 * flops, PEAK_TF32)
 
 
 def check_line_counts(counts, per_run, runs, line, results):
@@ -691,12 +738,10 @@ def profile_chunk(torch, run, chunk_ms, card, what, line, results,
     recognition library) under torch.profiler, and each kernel's device
     time and grids in it (added to its row as ``chunk_device_ms[line]``)."""
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity
 
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        run()
-        torch.cuda.synchronize()
+    prof = profiled(torch, [ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                    run)
     averages = prof.key_averages()
     # device-side events only (the CPU ops that launched them repeat the
     # same time), without the spans of the library's annotated stages;
@@ -1427,20 +1472,29 @@ def device_ms_by(torch, fn, role_of, runs=20):
     """Device ms per call of fn(), summed by ``role_of(kernel name)`` over
     the grids it gives a role (None: not counted), from torch.profiler."""
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity
 
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    def calls():
         for _ in range(runs):
             fn()
-        torch.cuda.synchronize()
-    out = {}
-    for e in prof.key_averages():
-        role = role_of(e.key) if e.device_type == DeviceType.CUDA else None
-        if role is not None:
-            out[role] = (out.get(role, 0.0)
-                         + e.self_device_time_total / runs / 1e3)
+
+    fn()
+    # a session whose grids were not recorded in whole calls lost events
+    # (device_ms): taken again, twice
+    for _ in range(3):
+        prof = profiled(torch, [ProfilerActivity.CUDA], calls)
+        out, counts = {}, {}
+        for e in prof.key_averages():
+            role = (role_of(e.key) if e.device_type == DeviceType.CUDA
+                    else None)
+            if role is not None:
+                out[role] = (out.get(role, 0.0)
+                             + e.self_device_time_total / runs / 1e3)
+                counts[role] = counts.get(role, 0) + e.count
+        if all(c % runs == 0 for c in counts.values()):
+            return out
+        print(f"note: torch.profiler recorded grids {counts} in {runs} "
+              f"calls", flush=True)
     return out
 
 
@@ -2182,9 +2236,17 @@ def cli_paths(torch, kernels, dev, card, results, work):
               thresholds, frames_b, fidx_b, counts_b,
               REC_LAUNCHES["retinaface"]))
     lines, medians = [], {}
+    # (b)'s emotion tails' inputs of its first chunk, for cli-k8-f32
+    emo_b, taken = sets["retinaface"][4].module, {}
+    hooks = [layer[0].register_forward_hook(
+        lambda mod, args, y, n=n: taken.setdefault(n, y.detach()))
+        for n, layer in (("l1", emo_b.layer1), ("l2", emo_b.layer2))]
     for key, what, args, models, thr, frames, fidx, counts, per_run in paths:
         rows, times, launches, log = cli_drive(
             torch, kernels, DV, args, models, thr, frames, fps, fidx)
+        if key == "b":
+            for h in hooks:
+                h.remove()
         cli_check_rows(rows, counts, fps, f"cli ({key})")
         runs = launches["pnet_chain"] if key == "a" else len(times)
         if runs < len(times):
@@ -2210,6 +2272,8 @@ def cli_paths(torch, kernels, dev, card, results, work):
           f"{SIZE}x{SIZE} frames with {FACES_PER_FRAME} faces each, on the "
           f"card ({card}); K1-K8 each launched through the CLIs: "
           + " | ".join(lines))
+    k8_f32_at(torch, kernels, emo_b, taken, card, results)
+    del taken
 
     # celeb_statistic's dynamic-interval tracker.json of (b): as the CLI
     # writes it (-ign Unknown), and with nothing ignored, every interval's
@@ -2385,14 +2449,18 @@ def step_ms(rec):
 def busy_ms(torch, run):
     """Device time of ``run()`` under torch.profiler (the sum over device
     events, the copies on the loader's side stream included) and the five
-    largest device functions."""
+    largest device functions. ``run()`` trains, so the profiler's warm-up
+    step runs small grids of its own instead."""
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity
 
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        run()
-        torch.cuda.synchronize()
+    def warm():
+        x = torch.ones(1 << 20, device="cuda")
+        for _ in range(64):
+            x = x * 1.0
+
+    prof = profiled(torch, [ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                    run, warm)
     device = [e for e in prof.key_averages()
               if e.device_type == DeviceType.CUDA
               and not getattr(e, "is_user_annotation", False)]
@@ -3992,25 +4060,34 @@ def readers_paths(torch, kernels, dev, card, results, work):
 
 
 def k5_f32_at(torch, trunks, results):
-    """K5's f32 grid at the crops of one MTCNN chunk run of the CLI path
-    (``trunks``: its RNet and ONet calls, (net, spec, crops)): each net's
-    call time (CUDA events) and profiler device time on those crops, and
-    on seeded crops of the same count, beside its bound (crops read once
-    and features written once, 4 bytes a value; conv1 + conv2
-    multiply-adds at the f32 peak). The row keeps the call time: in a
-    long process the profiler has summed this grid below its bound
-    (PERF.md §7), and a call time below the bound fails. Returns the
-    line's text."""
+    """K5's f32 grid (3xTF32) at the crops of one MTCNN chunk run of the
+    CLI path (``trunks``: its RNet and ONet calls, (net, spec, crops)):
+    held to the plain version in f32 within 1e-4 of max|ref| on all of
+    them; each net's call time (CUDA events) and profiler device time on
+    those crops, and on seeded crops of the same count, beside its floor
+    (crops read once and features written once, 4 bytes a value; conv1 +
+    conv2 multiply-adds in 3xTF32 at the TF32 peak) and its bound at the
+    f32 peak. The row keeps the call time: in a long process the profiler
+    has summed K5's f32 grid below its bound (PERF.md §7), and a call time
+    below the floor fails. Returns the line's text."""
     from vn_celeb_face_recognition_tpu_torch.ops import crops_net as K5
 
     gen = torch.Generator(device="cuda").manual_seed(13)
-    parts, total, total_bound = [], 0.0, 0.0
+    parts, err = [], 0.0
+    total = total_dev = total_floor = total_f32 = 0.0
     for net, spec, crops in trunks:
         seeded = (torch.rand(crops.shape, generator=gen, device="cuda")
                   - 0.5) * 2.0
         out = K5.crop_net_trunk(net, crops, spec)
         if crops.dtype != torch.float32 or out.dtype != torch.float32:
             fail(f"K5 at the CLI path: {spec.name} runs in {crops.dtype}")
+        want = K5.crop_net_trunk_plain(net, crops, spec)
+        scale = float(want.abs().max())
+        e = check_close(torch, out, want, 1e-4, 1e-4 * scale,
+                        f"K5 f32 at the CLI path, {spec.name}, "
+                        f"{crops.shape[0]} crops")
+        err = max(err, e)
+        del want
         times = {}
         for what, x in (("the path's crops", crops), ("seeded crops",
                                                       seeded)):
@@ -4019,26 +4096,101 @@ def k5_f32_at(torch, trunks, results):
                                                                spec)),
                 device_ms(torch, lambda x=x: K5.crop_net_trunk(net, x, spec),
                           KERNEL_GRIDS["crop_net_trunk"]))
-        ms = times["the path's crops"][0]
+        ms, dev_ms = times["the path's crops"]
         nbytes = (crops.numel() + out.numel()) * 4
         flops = crops.shape[0] * trunk_flops(spec)
-        b_ms, b_by = bound(nbytes, flops, PEAK_F32)
-        if ms < b_ms:
+        floor_ms, floor_by = bound_3xtf32(nbytes, flops)
+        f32_ms, f32_by = bound(nbytes, flops, PEAK_F32)
+        if ms < floor_ms:
             fail(f"K5 f32 at the CLI path: {spec.name} call {ms:.3f} ms is "
-                 f"under its bound {b_ms:.3f} ms")
-        total, total_bound = total + ms, total_bound + b_ms
-        parts.append(f"{spec.name} {crops.shape[0]} crops: " + ", ".join(
-            f"{what} {c:.3f} ms (profiler {d:.3f} ms)"
-            for what, (c, d) in times.items())
-            + f"; bound {b_ms:.3f} ms ({b_by}; {flops / 1e9:.2f} GFLOP, "
+                 f"under its 3xtf32 floor {floor_ms:.3f} ms")
+        total, total_dev = total + ms, total_dev + dev_ms
+        total_floor, total_f32 = total_floor + floor_ms, total_f32 + f32_ms
+        parts.append(f"{spec.name} {crops.shape[0]} crops: max abs err "
+                     f"{e:.3e} vs plain f32 (max|ref| {scale:.3e}; 1e-4 x "
+                     f"max|ref|); " + ", ".join(
+                         f"{what} {c:.3f} ms (profiler {d:.3f} ms)"
+                         for what, (c, d) in times.items())
+                     + f"; 3xtf32 floor {floor_ms:.3f} ms ({floor_by}), "
+                     f"f32-peak bound {f32_ms:.3f} ms ({f32_by}; "
+                     f"{flops / 1e9:.2f} GFLOP, {nbytes / 1e6:.1f} MB)")
+    results["crop_net_trunk"]["f32_cli"] = dict(
+        ms=total, device_ms=total_dev, bound_ms=total_floor,
+        bound_f32_peak_ms=total_f32, max_abs_err=err)
+    return (f"K5's f32 grid (3xTF32) at this path's crops of a chunk run "
+            f"(call: CUDA events around the wrapper call, median of 20; "
+            f"profiler: device time, mean per call): " + "; ".join(parts)
+            + f"; both {total:.3f} ms a call on the path's crops (profiler "
+            f"{total_dev:.3f} ms) against a 3xtf32 floor of "
+            f"{total_floor:.3f} ms (f32-peak bound {total_f32:.3f} ms)")
+
+
+def k8_f32_at(torch, kernels, emo, taken, card, results):
+    """K8's f32 grid (3xTF32) on the emotion tails' inputs of one chunk of
+    CLI path (b) (``taken``: layer name -> the NCHW output of the layer's
+    first block, from a forward hook): held to the plain version in f32
+    within 1e-4 of max|ref|, launches held by through_kernel, and timed:
+    kernel device time (torch.profiler), the wrapper call (CUDA events)
+    and the plain version (cuDNN, TF32 off), beside the 3xtf32 floor (x
+    read and y written once a block, the weights once; the multiply-adds
+    in 3xTF32 at the TF32 peak) and the bound at the f32 peak. A call time
+    under the floor fails."""
+    from vn_celeb_face_recognition_tpu_torch.ops import bottleneck as K8
+
+    parts, row = [], {}
+    tot = dict(ms=0.0, call_ms=0.0, plain_ms=0.0, bound_ms=0.0,
+               bound_f32_peak_ms=0.0, max_abs_err=0.0)
+    for name, layer, c, p in (("l1", emo.layer1, 256, 64),
+                              ("l2", emo.layer2, 512, 128)):
+        blocks = list(layer)[1:]
+        x = taken[name].permute(0, 2, 3, 1)  # as _trunk hands it to K8
+        k, side = int(x.shape[0]), int(x.shape[1])
+        if x.dtype != torch.float32 or x.shape[-1] != c:
+            fail(f"K8 f32 at CLI (b) {name}: the tail's input is {x.dtype} "
+                 f"{tuple(x.shape)}")
+        got = through_kernel(kernels, "bottleneck_chain",
+                             lambda: K8.bottleneck_chain(blocks, x),
+                             launches=3 * len(blocks))
+        want = K8.bottleneck_chain_plain(blocks, x)
+        scale = float(want.abs().max())
+        e = check_close(torch, got, want, 1e-4, 1e-4 * scale,
+                        f"K8 f32 at CLI (b) {name}")
+        del got, want
+        t_k, t_call, t_p = timed(
+            torch, "bottleneck_chain",
+            lambda: K8.bottleneck_chain(blocks, x),
+            lambda: K8.bottleneck_chain_plain(blocks, x))
+        pix = k * side * side
+        flops = len(blocks) * pix * 2 * (2 * c * p + 9 * p * p)
+        nbytes = len(blocks) * (2 * pix * c + 2 * c * p + 9 * p * p) * 4
+        floor_ms, floor_by = bound_3xtf32(nbytes, flops)
+        f32_ms, f32_by = bound(nbytes, flops, PEAK_F32)
+        if t_call < floor_ms:
+            fail(f"K8 f32 at CLI (b) {name}: call {t_call:.3f} ms is under "
+                 f"its 3xtf32 floor {floor_ms:.3f} ms")
+        row[name] = dict(k=k, side=side, max_abs_err=e, ms=t_k,
+                         call_ms=t_call, plain_ms=t_p, bound_ms=floor_ms,
+                         bound_by=floor_by, bound_f32_peak_ms=f32_ms)
+        for key, v in (("ms", t_k), ("call_ms", t_call), ("plain_ms", t_p),
+                       ("bound_ms", floor_ms), ("bound_f32_peak_ms", f32_ms)):
+            tot[key] += v
+        tot["max_abs_err"] = max(tot["max_abs_err"], e)
+        parts.append(
+            f"{name} K={k} C={c} {side}x{side} {len(blocks)} blocks: max "
+            f"abs err {e:.3e} vs plain f32 (max|ref| {scale:.3e}; 1e-4 x "
+            f"max|ref|); kernel "
+            f"{t_k:.3f} ms ({flops / t_k / 1e9:.1f} TFLOP/s), call "
+            f"{t_call:.3f} ms, plain (cuDNN, TF32 off) {t_p:.3f} ms; 3xtf32 "
+            f"floor {floor_ms:.3f} ms ({floor_by}), f32-peak bound "
+            f"{f32_ms:.3f} ms ({f32_by}; {flops / 1e9:.2f} GFLOP, "
             f"{nbytes / 1e6:.1f} MB)")
-    results["crop_net_trunk"]["f32_cli"] = dict(ms=total,
-                                                bound_ms=total_bound)
-    return (f"K5's f32 grid at this path's crops of a chunk run (call: CUDA "
-            f"events around the wrapper call, median of 20; profiler: "
-            f"device time, mean per call): " + "; ".join(parts)
-            + f"; both {total:.3f} ms a call on the path's crops against a "
-            f"bound of {total_bound:.3f} ms at the f32 peak")
+    results["bottleneck_chain"]["f32_cli"] = dict(tot, **row)
+    phase("cli-k8-f32", "bottleneck_chain f32 (3xTF32) on the emotion "
+          "tails' own inputs of a CLI (b) chunk, 3 launches a block: "
+          + "; ".join(parts) + f"; both tails {tot['ms']:.3f} ms (call "
+          f"{tot['call_ms']:.3f} ms), plain {tot['plain_ms']:.3f} ms, "
+          f"3xtf32 floor {tot['bound_ms']:.3f} ms, f32-peak bound "
+          f"{tot['bound_f32_peak_ms']:.3f} ms ({TIMING}; {card})")
 
 
 def face_batch(torch, n, size):

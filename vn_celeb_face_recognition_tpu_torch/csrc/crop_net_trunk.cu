@@ -1,8 +1,8 @@
 // K5: the MTCNN RNet/ONet trunk on batched face crops.
 //
 // Replaces the TPU kernel vn_celeb_face_recognition_tpu/ops/
-// crops_net_pallas.py (crop_net_trunk, used by rnet_apply_fused and
-// onet_apply_fused). Function, per normalised crop [S, S, 3] (NHWC):
+// crops_net_pallas.py:239 (crop_net_trunk, used by rnet_apply_fused and
+// onet_apply_fused), in both its dtypes. Function, per normalised crop [S, S, 3] (NHWC):
 // conv1 3x3 valid (3 -> C1) + bias + PReLU, max pool 3x3/2 in torch's
 // ceil mode, conv2 3x3 valid (C1 -> C2) + bias + PReLU:
 //   RNet: [N, 24, 24, 3] -> 22 -> 11 -> [N, 9, 9, 48]   (C1 28, C2 48)
@@ -10,7 +10,7 @@
 // The TPU kernel's space-to-depth packing and subposition matrix A1 are
 // not carried over.
 //
-// Bound on the H100: per crop the trunk is ~2.7 MFLOP (RNet) and
+// Bound on the H100 (bf16): per crop the trunk is ~2.7 MFLOP (RNet) and
 // ~20 MFLOP (ONet) against 3.5 KB / 14 KB of bf16 in and 7.8 KB / 56 KB
 // out. At the stock line's 32,768 RNet and 16,384 ONet crops a chunk is
 // 0.41 TFLOP (0.42 ms at the bf16 tensor-core peak) against 1.5 GB
@@ -51,11 +51,49 @@
 // thread (the __launch_bounds__(256, 2) cap), with 36 bytes (ONet) and
 // 4 bytes (RNet) of spills.
 //
-// f32 (the card-vs-CPU gates and the 1e-4 check) stays on the CUDA cores
-// with f32 sums, one block per crop: the crop is staged channel-planar,
-// conv1 runs in bands of pooled rows into the resident pooled map
-// [C1][P][P], and conv2's weights then replace the crop and band buffers
-// (ONet in f32 needs 153 KB of shared memory).
+// f32 (3xTF32; the dtype of every shipped config: demo_video
+// --fused_engine runs MTCNN in f32, CLI path a, 16,384 RNet + 8,192 ONet
+// crops a chunk run), crop_net_trunk_tf32x3<S, C2, G, R, MT, NT>:
+// - Bound at CLI a's crops: 207.2 GFLOP (RNet 44.1, ONet 163.1) and 1.52
+//   GB of f32 crops in and features out (0.45 ms at 3.35 TB/s). The floor
+//   for f32-accurate work is 1.256 ms (RNet 0.267, ONet 0.989), 3 x the
+//   operations as TF32 products at 495 TFLOP/s; at the 67 TFLOP/s f32 peak
+//   of the CUDA cores it would be 3.093 ms.
+// - What held the old design back (one block per crop on the CUDA cores):
+//   ~153 KB of shared memory for ONet, so one 512-thread block an SM; it
+//   restaged conv2's 74 KB of weights from L2 for every crop; each group
+//   of 16 FMAs cost 5 shared loads. 10.65 ms of device time a CLI a chunk
+//   (chip_smoke.py's cli-profile), RNet 2.26-2.34 + ONet 8.16-8.21 ms in
+//   tools/torch_k5_probe.py.
+// - What this design does: the bf16 grid's structure in f32 on the tensor
+//   cores. Persistent blocks load the packed f32 weights once (w1 split
+//   into tf32 hi and lo in shared memory once, as the B operand of every
+//   conv1 tile) and stage the next group's crops by cp.async during
+//   conv2. conv1 is a GEMM over positions x (tap, ci), K = 27 + a ones
+//   column for the bias, padded to 32 (4 k8 steps), in bands of R = 2
+//   pooled rows into a ring of 5 conv rows (PReLU in f32), pooled (3x3/2,
+//   ceil mode) into the resident NHWC pooled map, 36 floats a pixel (9
+//   16-byte units, so ldmatrix rows of eight neighbours fall in distinct
+//   bank groups). conv2 is an implicit GEMM, M = positions, N = C2, K = 9
+//   taps x 32 channels, in items of MT m16 x NT n8 tiles (ONet 2 x 4, RNet
+//   1 x 2: the fastest without large spills in the probe), A and B split
+//   as they are loaded (mma.cuh); a tap's products are summed from zero
+//   on the tensor cores and added to the sums on the CUDA cores (their
+//   sums round toward zero; summed straight in, ONet's error was 1.8e-5
+//   against 8.3e-6, for 9% less time). Epilogue: bias + PReLU in f32,
+//   float2 stores (a quad writes 32 bytes).
+// - Shared memory: ONet 221,552 B, RNet (G = 4) 226,496 B, so one block of
+//   16 warps an SM. Accepted: at the 128-register cap an SM runs 512
+//   threads either way, so two blocks of 8 warps would add no warps, only
+//   a second copy of the weights; blocks of 8 and 12 warps measured 8% and
+//   2% slower on ONet (the probe). -Xptxas -v (sm_90a): 128 registers a
+//   thread (__launch_bounds__(512, 1)), spills ONet 60 bytes stored / 92
+//   loaded, RNet 24 / 36.
+// - Measured (NVIDIA H100 80GB HBM3, 700 W; the probe and the grids
+//   probe): RNet 1.379-1.397 ms, ONet 3.440-3.453 ms of device time (32
+//   and 47 TFLOP/s; 19% and 29% of the floor), a call 1.50 + 3.56 ms;
+//   cuDNN in f32 (TF32 off) 6.49 + 15.42 ms; max abs err 5.7e-6 and
+//   8.6e-6 against it (max|ref| 5.0 and 5.5).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -75,174 +113,7 @@ __device__ __forceinline__ float prelu(float v, float a) {
   return v >= 0.f ? v : v * a;
 }
 
-constexpr int round4(int v) { return (v + 3) / 4 * 4; }
 constexpr int round16(int v) { return (v + 15) / 16 * 16; }
-
-// ---------------------------------------------------------------------
-// f32: one block per crop on the CUDA cores
-// ---------------------------------------------------------------------
-
-template <int S, int C1, int C2, int R, int THREADS>
-struct Trunk {
-  static constexpr int H1 = S - 2;             // conv1 side
-  static constexpr int P = (H1 - 2) / 2 + 1;   // ceil-mode pooled side
-  static constexpr int P2 = P - 2;             // conv2 side
-  static constexpr int BR = 2 * R + 1 < H1 ? 2 * R + 1 : H1;  // band rows
-  static constexpr int kCrop = round4(3 * S * S);
-  static constexpr int kBand = round4(BR * C1 * H1);
-  static constexpr int kW2 = 9 * C1 * C2;
-  static constexpr int kRegionA = kCrop + kBand > kW2 ? kCrop + kBand : kW2;
-  static constexpr int kPooled = round4(C1 * P * P);
-  // packed weights: w1 [27][C1], b1, a1, w2 [9][C1][C2], b2, a2
-  static constexpr int kW1 = 27 * C1;
-  static constexpr size_t kSmemBytes =
-      sizeof(float) * (kRegionA + kPooled + kW1 + 2 * C1 + 2 * C2);
-  static_assert(C1 % 4 == 0 && C2 % 16 == 0, "channel blocking");
-};
-
-template <int S, int C1, int C2, int R, int THREADS>
-__global__ void __launch_bounds__(THREADS)
-crop_net_trunk_f32(const float* __restrict__ crops,
-                   const float* __restrict__ weights,
-                   float* __restrict__ out) {
-  using G = Trunk<S, C1, C2, R, THREADS>;
-  constexpr int H1 = G::H1, P = G::P, P2 = G::P2;
-  extern __shared__ float4 smem4[];
-  float* smem = reinterpret_cast<float*>(smem4);
-  float* crop = smem;                       // [3][S][S]
-  float* band = smem + G::kCrop;            // [BR][C1][H1]
-  float* w2s = smem;                        // [9][C1][C2], after conv1
-  float* pooled = smem + G::kRegionA;       // [C1][P][P]
-  float* w1s = pooled + G::kPooled;         // [27][C1]
-  float* b1s = w1s + G::kW1;
-  float* a1s = b1s + C1;
-  float* b2s = a1s + C1;
-  float* a2s = b2s + C2;
-
-  const int tid = threadIdx.x;
-  const size_t n = blockIdx.x;
-  const float* src = crops + n * S * S * 3;
-  for (int i = tid; i < S * S * 3; i += THREADS) {
-    const int c = i % 3, p = i / 3;
-    crop[c * S * S + p] = src[i];
-  }
-  for (int i = tid; i < G::kW1 + 2 * C1; i += THREADS) w1s[i] = weights[i];
-  const float* w2g = weights + G::kW1 + 2 * C1;
-  for (int i = tid; i < 2 * C2; i += THREADS) b2s[i] = w2g[G::kW2 + i];
-  __syncthreads();
-
-  // ---- conv1 + PReLU in bands, each pooled into the resident map ----
-  for (int py0 = 0; py0 < P; py0 += R) {
-    const int py1 = py0 + R < P ? py0 + R : P;
-    const int r0 = 2 * py0;
-    const int r1 = 2 * (py1 - 1) + 2 < H1 - 1 ? 2 * (py1 - 1) + 2 : H1 - 1;
-    const int rows = r1 - r0 + 1;
-    for (int i = tid; i < rows * H1; i += THREADS) {
-      const int rr = i / H1, x = i % H1;
-      const int y = r0 + rr;
-      float acc[C1];
-#pragma unroll
-      for (int c = 0; c < C1; ++c) acc[c] = b1s[c];
-#pragma unroll
-      for (int ky = 0; ky < 3; ++ky)
-#pragma unroll
-        for (int kx = 0; kx < 3; ++kx)
-#pragma unroll
-          for (int ci = 0; ci < 3; ++ci) {
-            const float v = crop[ci * S * S + (y + ky) * S + x + kx];
-            const float4* w = reinterpret_cast<const float4*>(
-                w1s + ((ky * 3 + kx) * 3 + ci) * C1);
-#pragma unroll
-            for (int c4 = 0; c4 < C1 / 4; ++c4) {
-              const float4 wv = w[c4];
-              acc[4 * c4] += v * wv.x;
-              acc[4 * c4 + 1] += v * wv.y;
-              acc[4 * c4 + 2] += v * wv.z;
-              acc[4 * c4 + 3] += v * wv.w;
-            }
-          }
-      float* dst = band + rr * C1 * H1 + x;
-#pragma unroll
-      for (int c = 0; c < C1; ++c) dst[c * H1] = prelu(acc[c], a1s[c]);
-    }
-    __syncthreads();
-    for (int i = tid; i < C1 * (py1 - py0) * P; i += THREADS) {
-      const int px = i % P;
-      const int py = py0 + (i / P) % (py1 - py0);
-      const int c = i / (P * (py1 - py0));
-      float m = -INFINITY;
-#pragma unroll
-      for (int sy = 0; sy < 3; ++sy) {
-        const int y = 2 * py + sy;
-        if (y >= H1) break;
-#pragma unroll
-        for (int sx = 0; sx < 3; ++sx) {
-          const int x = 2 * px + sx;
-          if (x >= H1) break;
-          m = fmaxf(m, band[(y - r0) * C1 * H1 + c * H1 + x]);
-        }
-      }
-      pooled[(c * P + py) * P + px] = m;
-    }
-    __syncthreads();
-  }
-
-  // ---- conv2 + PReLU: the weights replace the crop and band buffers ----
-  for (int i = tid; i < G::kW2 / 4; i += THREADS)
-    reinterpret_cast<float4*>(w2s)[i] =
-        __ldg(reinterpret_cast<const float4*>(w2g) + i);
-  __syncthreads();
-  constexpr int kPos = P2 * P2;
-  float* dst = out + n * kPos * C2;
-  for (int i = tid; i < kPos * (C2 / 16); i += THREADS) {
-    const int pos = i % kPos, cb = i / kPos;
-    const int y = pos / P2, x = pos % P2;
-    float acc[16];
-#pragma unroll
-    for (int j = 0; j < 16; ++j) acc[j] = b2s[cb * 16 + j];
-#pragma unroll
-    for (int ky = 0; ky < 3; ++ky)
-#pragma unroll
-      for (int kx = 0; kx < 3; ++kx) {
-        const float* pin = pooled + (y + ky) * P + x + kx;
-        const float* wt = w2s + (ky * 3 + kx) * C1 * C2 + cb * 16;
-#pragma unroll 4
-        for (int ci = 0; ci < C1; ++ci) {
-          const float v = pin[ci * P * P];
-          const float4* w = reinterpret_cast<const float4*>(wt + ci * C2);
-#pragma unroll
-          for (int j4 = 0; j4 < 4; ++j4) {
-            const float4 wv = w[j4];
-            acc[4 * j4] += v * wv.x;
-            acc[4 * j4 + 1] += v * wv.y;
-            acc[4 * j4 + 2] += v * wv.z;
-            acc[4 * j4 + 3] += v * wv.w;
-          }
-        }
-      }
-    float4* o = reinterpret_cast<float4*>(dst + (size_t)pos * C2 + cb * 16);
-#pragma unroll
-    for (int j4 = 0; j4 < 4; ++j4)
-      o[j4] = make_float4(prelu(acc[4 * j4], a2s[cb * 16 + 4 * j4]),
-                          prelu(acc[4 * j4 + 1], a2s[cb * 16 + 4 * j4 + 1]),
-                          prelu(acc[4 * j4 + 2], a2s[cb * 16 + 4 * j4 + 2]),
-                          prelu(acc[4 * j4 + 3], a2s[cb * 16 + 4 * j4 + 3]));
-  }
-}
-
-template <int S, int C1, int C2, int R, int THREADS>
-int launch_f32(const void* crops, const void* weights, void* out, int n,
-               cudaStream_t stream) {
-  using G = Trunk<S, C1, C2, R, THREADS>;
-  auto kern = crop_net_trunk_f32<S, C1, C2, R, THREADS>;
-  cudaError_t e = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)G::kSmemBytes);
-  if (e != cudaSuccess) return (int)e;
-  kern<<<n, THREADS, G::kSmemBytes, stream>>>(
-      static_cast<const float*>(crops), static_cast<const float*>(weights),
-      static_cast<float*>(out));
-  return (int)cudaGetLastError();
-}
 
 // ---------------------------------------------------------------------
 // bf16: persistent blocks on the tensor cores
@@ -517,37 +388,342 @@ crop_net_trunk_mma(const bf16* __restrict__ crops,
   cp_async_wait_all();
 }
 
-template <int S, int C2, int G, int R, int NT>
-int launch_mma(const void* crops, const void* weights, void* out, int n,
-               cudaStream_t stream) {
-  using L = Mma<S, C2, G, R, NT>;
-  auto kern = crop_net_trunk_mma<S, C2, G, R, NT>;
+// ---------------------------------------------------------------------
+// f32: persistent blocks on the tensor cores in 3xTF32
+// ---------------------------------------------------------------------
+
+constexpr int kTfWarps = 16;
+constexpr int kTfThreads = 32 * kTfWarps;
+constexpr int K1T = C1P + 4;   // w1 row pitch, floats (9 16-byte units)
+constexpr int K2T = K2 + 4;    // w2 row pitch, floats (73 units)
+constexpr int PIXT = C1P + 4;  // band and pooled pixel pitch (9 units)
+
+// the packed f32 buffer: w1 [32][K1T] (conv1's bias in column 27, against
+// a column of ones in A), w2 [C2][K2T], then a1[32], b2[C2], a2[C2]
+// (ops/crops_net.pack_trunk_weights_tf32x3). In shared memory w1 is held
+// split, its hi half in place and its lo half after the buffer.
+template <int C2>
+struct PackedTf {
+  static constexpr int kW1Bytes = C1P * K1T * 4;
+  static constexpr int kW2Bytes = C2 * K2T * 4;
+  static constexpr int kParBytes = (C1P + 2 * C2) * 4;
+  static constexpr int kBytes = kW1Bytes + kW2Bytes + kParBytes;
+  static constexpr int kSmemBytes = kBytes + kW1Bytes;  // + w1's lo half
+  static_assert(kW1Bytes % 16 == 0 && kW2Bytes % 16 == 0 &&
+                kParBytes % 16 == 0, "16-byte copies");
+};
+
+// S crop side, C2 conv2 channels, G crops a group, R pooled rows a conv1
+// band, conv2 items of MT m16 tiles x NT n8 tiles
+template <int S, int C2, int G, int R, int MT, int NT>
+struct Tf {
+  static constexpr int H1 = S - 2;
+  static constexpr int P = (H1 - 2) / 2 + 1;
+  static constexpr int P2 = P - 2;
+  static constexpr int BR = 2 * R + 1;
+  static constexpr int NG = C2 / (8 * NT);       // channel groups
+  static constexpr int kPooledBytes = G * P * P * PIXT * 4;
+  static constexpr int kCropBytes = G * S * S * 3 * 4;
+  static constexpr int kBandBytes = G * BR * H1 * PIXT * 4;
+  static constexpr int kSmemBytes = PackedTf<C2>::kSmemBytes +
+                                    kPooledBytes + kCropBytes + kBandBytes;
+  static_assert(C2 % (8 * NT) == 0 && NT % 2 == 0, "channel groups");
+  static_assert(kCropBytes % 16 == 0, "16-byte crop copies");
+  static_assert(kSmemBytes <= 232448, "one block an SM");
+};
+
+template <int S, int C2, int G, int R, int MT, int NT>
+__global__ void __launch_bounds__(kTfThreads, 1)
+crop_net_trunk_tf32x3(const float* __restrict__ crops,
+                      const float* __restrict__ weights,
+                      float* __restrict__ out, int n) {
+  using L = Tf<S, C2, G, R, MT, NT>;
+  using W = PackedTf<C2>;
+  constexpr int H1 = L::H1, P = L::P, P2 = L::P2;
+  extern __shared__ uint4 smem_u4[];
+  uint8_t* smem = reinterpret_cast<uint8_t*>(smem_u4);
+  float* w1h = reinterpret_cast<float*>(smem);
+  const float* w2s = reinterpret_cast<const float*>(smem + W::kW1Bytes);
+  const float* a1s =
+      reinterpret_cast<const float*>(smem + W::kW1Bytes + W::kW2Bytes);
+  const float* b2s = a1s + C1P;
+  const float* a2s = b2s + C2;
+  float* w1l = reinterpret_cast<float*>(smem + W::kBytes);
+  float* pooled = reinterpret_cast<float*>(smem + W::kSmemBytes);
+  float* crop = pooled + G * P * P * PIXT;
+  float* band = crop + G * S * S * 3;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+
+  // the packed weights, once per block; w1 split into hi (in place) and lo
+  for (int i = tid; i < W::kBytes / 16; i += kTfThreads)
+    smem_u4[i] = __ldg(reinterpret_cast<const uint4*>(weights) + i);
+  __syncthreads();
+  for (int i = tid; i < C1P * K1T; i += kTfThreads) {
+    unsigned hi, lo;
+    split_tf32(__float_as_uint(w1h[i]), hi, lo);
+    w1h[i] = __uint_as_float(hi);
+    w1l[i] = __uint_as_float(lo);
+  }
+  __syncthreads();
+
+  const int gq = lane / 4, tq = lane % 4;  // mma fragment row / column
+  // conv1 A columns of this lane: k = ks*8 + tq (+4) -> crop offset of
+  // (tap, ci) relative to the position; k = 27 is the column of ones that
+  // meets the bias (-2), k > 27 padding (-1)
+  int koff[4][2];
+#pragma unroll
+  for (int ks = 0; ks < 4; ++ks)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int k = ks * 8 + tq + 4 * h;
+      const int tap = k / 3, ci = k % 3;
+      koff[ks][h] = k < 27 ? ((tap / 3) * S + tap % 3) * 3 + ci
+                           : (k == 27 ? -2 : -1);
+    }
+  // conv1's PReLU slopes of this lane's channels j*8 + 2t (+1)
+  float a1r[4][2];
+#pragma unroll
+  for (int j = 0; j < 4; ++j)
+#pragma unroll
+    for (int e = 0; e < 2; ++e) a1r[j][e] = a1s[j * 8 + 2 * tq + e];
+  // this lane's ldmatrix row of w1 (B: n rows, k columns), hi and lo
+  const int b1off =
+      (8 * (lane >> 4) + (lane & 7)) * K1T + 4 * ((lane >> 3) & 1);
+
+  const int groups = (n + G - 1) / G;
+  // a group's crops are contiguous in device memory: cp.async them
+  auto fetch = [&](int grp) {
+    if (grp < groups) {
+      const int c = grp * G, count = min(G, n - c);
+      const char* src =
+          reinterpret_cast<const char*>(crops + (size_t)c * S * S * 3);
+      for (int i = tid; i < count * S * S * 3 * 4 / 16; i += kTfThreads)
+        cp_async16(reinterpret_cast<uint4*>(crop) + i, src + 16 * i);
+    }
+    cp_async_commit();
+  };
+  fetch(blockIdx.x);
+  for (int grp = blockIdx.x; grp < groups; grp += gridDim.x) {
+    const int c0 = grp * G;
+    const int gv = min(G, n - c0);
+    cp_async_wait_all();
+    __syncthreads();
+
+    // ---- conv1 + PReLU band by band, pooled into the resident map ----
+    // (the ring of conv rows as on the bf16 path, kept in f32)
+    for (int py0 = 0; py0 < P; py0 += R) {
+      const int py1 = min(py0 + R, P);
+      const int first = py0 == 0 ? 0 : 2 * py0 + 1;
+      const int nrows = min(2 * py1, H1 - 1) - first + 1;
+      const int m1 = gv * nrows * H1;
+      for (int mt = warp; mt * 16 < m1; mt += kTfWarps) {
+        int base[2], dst[2];
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int m = min(mt * 16 + gq + 8 * h, m1 - 1);
+          const int q = m / H1, x = m - q * H1;
+          const int g = G == 1 ? 0 : q / nrows;
+          const int y = first + q - g * nrows;
+          base[h] = (g * S * S + y * S + x) * 3;
+          dst[h] = ((g * L::BR + y % L::BR) * H1 + x) * PIXT;
+        }
+        float acc[4][4] = {};
+#pragma unroll
+        for (int ks = 0; ks < 4; ++ks) {
+          // a0 (row g, k t), a1 (row g+8, k t), a2 (row g, k t+4),
+          // a3 (row g+8, k t+4)
+          unsigned v[4], ah[4], al[4];
+#pragma unroll
+          for (int q = 0; q < 4; ++q) {
+            const int ko = koff[ks][q >> 1];
+            v[q] = __float_as_uint(ko >= 0 ? crop[base[q & 1] + ko]
+                                           : (ko == -2 ? 1.f : 0.f));
+          }
+          split_n<4>(v, ah, al);
+#pragma unroll
+          for (int jp = 0; jp < 2; ++jp) {
+            unsigned bh[4], bl[4];
+            const int at = b1off + jp * 16 * K1T + ks * 8;
+            ldsm_x4(bh, w1h + at);
+            ldsm_x4(bl, w1l + at);
+            mma_tf32x3(acc[2 * jp], ah, al, bh, bl);
+            mma_tf32x3(acc[2 * jp + 1], ah, al, bh + 2, bl + 2);
+          }
+        }
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          if (mt * 16 + gq + 8 * h >= m1) continue;
+#pragma unroll
+          for (int j = 0; j < 4; ++j)
+            *reinterpret_cast<float2*>(band + dst[h] + j * 8 + 2 * tq) =
+                make_float2(prelu(acc[j][2 * h], a1r[j][0]),
+                            prelu(acc[j][2 * h + 1], a1r[j][1]));
+        }
+      }
+      __syncthreads();
+      // ceil-mode 3x3/2 pool, 4 channels (16 bytes) a thread
+      const int nb = py1 - py0;
+      for (int i = tid; i < gv * nb * P * (C1P / 4); i += kTfThreads) {
+        const int cq = i % (C1P / 4);
+        const int px = (i / (C1P / 4)) % P;
+        const int q = i / (C1P / 4 * P);
+        const int g = G == 1 ? 0 : q / nb;
+        const int py = py0 + q - g * nb;
+        const float* gband = band + g * L::BR * H1 * PIXT + 4 * cq;
+        const int ny = min(3, H1 - 2 * py), nx = min(3, H1 - 2 * px);
+        float4 m = *reinterpret_cast<const float4*>(
+            gband + ((2 * py) % L::BR * H1 + 2 * px) * PIXT);
+#pragma unroll
+        for (int dy = 0; dy < 3; ++dy) {
+          const float* row = gband + (2 * py + dy) % L::BR * H1 * PIXT;
+#pragma unroll
+          for (int dx = 0; dx < 3; ++dx) {
+            if (dy >= ny || dx >= nx) continue;  // the ceil-mode edge
+            const float4 v = *reinterpret_cast<const float4*>(
+                row + (2 * px + dx) * PIXT);
+            m = make_float4(fmaxf(m.x, v.x), fmaxf(m.y, v.y),
+                            fmaxf(m.z, v.z), fmaxf(m.w, v.w));
+          }
+        }
+        *reinterpret_cast<float4*>(pooled + ((g * P + py) * P + px) * PIXT +
+                                   4 * cq) = m;
+      }
+      __syncthreads();
+    }
+
+    // ---- conv2 + PReLU: implicit GEMM over the pooled map ----
+    fetch(grp + gridDim.x);  // the crop buffer is free until the next group
+    const int m2 = gv * P2 * P2;
+    const int items = (m2 + 16 * MT - 1) / (16 * MT) * L::NG;
+    for (int it = warp; it < items; it += kTfWarps) {
+      const int mt0 = it / L::NG * MT, ng = it % L::NG;
+      // this lane's ldmatrix rows of A: position -> pooled pixel
+      const float* arow[MT];
+#pragma unroll
+      for (int mi = 0; mi < MT; ++mi) {
+        const int am = min((mt0 + mi) * 16 + (lane & 7) +
+                               8 * ((lane >> 3) & 1), m2 - 1);
+        const int ag = am / (P2 * P2), arem = am % (P2 * P2);
+        arow[mi] = pooled +
+                   (ag * P * P + (arem / P2) * P + arem % P2) * PIXT +
+                   4 * (lane >> 4);
+      }
+      // and of B: w2 row (output channel) and k offset
+      const float* brow =
+          w2s + (ng * NT * 8 + 8 * (lane >> 4) + (lane & 7)) * K2T +
+          4 * ((lane >> 3) & 1);
+      float acc[MT][NT][4] = {};
+#pragma unroll
+      for (int tap = 0; tap < 9; ++tap) {
+        // a tap's 32 channels summed from zero on the tensor cores, then
+        // added to acc on the CUDA cores (mma_tf32x3_add, mma.cuh)
+        float t[MT][NT][4] = {};
+        const int toff = ((tap / 3) * P + tap % 3) * PIXT;
+#pragma unroll
+        for (int q = 0; q < C1P / 8; ++q) {
+          unsigned ah[MT][4], al[MT][4];
+#pragma unroll
+          for (int mi = 0; mi < MT; ++mi) {
+            unsigned r[4];
+            ldsm_x4(r, arow[mi] + toff + q * 8);
+            split_n<4>(r, ah[mi], al[mi]);
+          }
+          const int k0 = tap * C1P + q * 8;
+#pragma unroll
+          for (int j = 0; j < NT; j += 2) {
+            unsigned b[4], bh[4], bl[4];
+            ldsm_x4(b, brow + j * 8 * K2T + k0);
+            split_n<4>(b, bh, bl);
+#pragma unroll
+            for (int mi = 0; mi < MT; ++mi) {
+              mma_tf32x3(t[mi][j], ah[mi], al[mi], bh, bl);
+              mma_tf32x3(t[mi][j + 1], ah[mi], al[mi], bh + 2, bl + 2);
+            }
+          }
+        }
+#pragma unroll
+        for (int mi = 0; mi < MT; ++mi)
+#pragma unroll
+          for (int j = 0; j < NT; ++j)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) acc[mi][j][e] += t[mi][j][e];
+      }
+      // epilogue: bias + PReLU, float2 stores (a quad writes 32 bytes)
+#pragma unroll
+      for (int mi = 0; mi < MT; ++mi) {
+        float* dst = out + ((size_t)c0 * P2 * P2 + (mt0 + mi) * 16) * C2 +
+                     ng * NT * 8;
+#pragma unroll
+        for (int j = 0; j < NT; ++j) {
+          const int cl = j * 8 + 2 * tq, c = ng * NT * 8 + cl;
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const int r = gq + 8 * h;
+            if ((mt0 + mi) * 16 + r >= m2) continue;
+            *reinterpret_cast<float2*>(dst + (size_t)r * C2 + cl) =
+                make_float2(
+                    prelu(acc[mi][j][2 * h] + b2s[c], a2s[c]),
+                    prelu(acc[mi][j][2 * h + 1] + b2s[c + 1], a2s[c + 1]));
+          }
+        }
+      }
+    }
+    __syncthreads();  // the next group's conv1 overwrites the band rows
+  }
+  cp_async_wait_all();
+}
+
+// ---------------------------------------------------------------------
+// launches
+// ---------------------------------------------------------------------
+
+// one launch of a persistent grid: as many blocks as fit the card, at most
+// one a group of crops
+template <typename In, typename Wt>
+int launch_persistent(void (*kern)(const In*, const Wt*, In*, int),
+                      int threads, int smem, int groups, const void* crops,
+                      const void* weights, void* out, int n,
+                      cudaStream_t stream) {
   cudaError_t e = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, L::kSmemBytes);
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return (int)e;
   int dev = 0, sms = 0, per_sm = 0;
   if ((e = cudaGetDevice(&dev)) != cudaSuccess) return (int)e;
   e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (e != cudaSuccess) return (int)e;
-  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kern, kThreads,
-                                                    L::kSmemBytes);
+  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kern, threads,
+                                                    smem);
   if (e != cudaSuccess) return (int)e;
-  const int groups = (n + G - 1) / G;
   const int grid = std::min(groups, std::max(per_sm, 1) * sms);
-  kern<<<grid, kThreads, L::kSmemBytes, stream>>>(
-      static_cast<const bf16*>(crops), static_cast<const uint8_t*>(weights),
-      static_cast<bf16*>(out), n);
+  kern<<<grid, threads, smem, stream>>>(static_cast<const In*>(crops),
+                                        static_cast<const Wt*>(weights),
+                                        static_cast<In*>(out), n);
   return (int)cudaGetLastError();
+}
+
+template <int S, int C2, int G, int R, int NT>
+int launch_mma(const void* crops, const void* weights, void* out, int n,
+               cudaStream_t stream) {
+  return launch_persistent(crop_net_trunk_mma<S, C2, G, R, NT>, kThreads,
+                           Mma<S, C2, G, R, NT>::kSmemBytes, (n + G - 1) / G,
+                           crops, weights, out, n, stream);
+}
+
+template <int S, int C2, int G, int R, int MT, int NT>
+int launch_tf32x3(const void* crops, const void* weights, void* out, int n,
+                  cudaStream_t stream) {
+  return launch_persistent(crop_net_trunk_tf32x3<S, C2, G, R, MT, NT>,
+                           kTfThreads, Tf<S, C2, G, R, MT, NT>::kSmemBytes,
+                           (n + G - 1) / G, crops, weights, out, n, stream);
 }
 
 }  // namespace
 
-// crops [n, S, S, 3] normalised, f32 or (bf16 = 1) bf16, and weights: f32
-// (27*C1 + 2*C1 + 9*C1*C2 + 2*C2 values, ops/crops_net.pack_trunk_weights)
-// or, on the bf16 path, the packed buffer of
-// ops/crops_net.pack_trunk_weights_mma -> out [n, P2, P2, C2] in the
-// crops' type; net 0 is RNet (S 24), 1 is ONet (S 48). One launch on
-// `stream`, no synchronisation; returns cudaGetLastError().
+// crops [n, S, S, 3] normalised, f32 or (bf16 = 1) bf16, and the packed
+// weights of ops/crops_net.pack_trunk_weights_tf32x3 (f32) or
+// pack_trunk_weights_mma (bf16) -> out [n, P2, P2, C2] in the crops' type;
+// net 0 is RNet (S 24), 1 is ONet (S 48). One launch on `stream`, no
+// synchronisation; returns cudaGetLastError().
 extern "C" int vn_crop_net_trunk(const void* crops, const void* weights,
                                  void* out, int n, int net, int bf16_path,
                                  void* stream) {
@@ -556,12 +732,12 @@ extern "C" int vn_crop_net_trunk(const void* crops, const void* weights,
   int e = vn_set_device_of(out);
   if (e != 0) return e;
   cudaStream_t st = (cudaStream_t)stream;
-  // (S, C2, crops per group, pooled rows per band, n-tiles per item) and
-  // (S, C1, C2, pooled rows per band, threads): ops/crops_net.py specs
+  // (S, C2, crops per group, pooled rows per band, [m-tiles and] n-tiles
+  // per conv2 item): ops/crops_net.py specs
   if (bf16_path)
     return net == 0 ? launch_mma<24, 48, 4, 2, 6>(crops, weights, out, n, st)
                     : launch_mma<48, 64, 1, 2, 4>(crops, weights, out, n, st);
   return net == 0
-             ? launch_f32<24, 28, 48, 11, 256>(crops, weights, out, n, st)
-             : launch_f32<48, 32, 64, 4, 512>(crops, weights, out, n, st);
+             ? launch_tf32x3<24, 48, 4, 2, 1, 2>(crops, weights, out, n, st)
+             : launch_tf32x3<48, 64, 1, 2, 2, 4>(crops, weights, out, n, st);
 }

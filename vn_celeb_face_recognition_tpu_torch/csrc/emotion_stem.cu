@@ -59,9 +59,10 @@
 // weight __ldg and a shared load per 4 FMAs, 78,784 bytes of f32 face
 // and cbuf (2 blocks an SM), two divisions per normalised value.
 //
-// f32 output, emotion_stem_kernel (the card-vs-CPU check): the same tile
-// on the CUDA cores in f32; each thread computes 4 output channels of a
-// conv position, so one float4 weight load feeds 4 FMAs.
+// f32 output, emotion_stem_kernel (the shipped configs' dtype, and the
+// card-vs-CPU check): the same tile on the CUDA cores in f32; each thread
+// computes 4 output channels of a conv position, so one float4 weight load
+// feeds 4 FMAs.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>

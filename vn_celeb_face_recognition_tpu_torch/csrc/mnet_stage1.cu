@@ -87,8 +87,9 @@
 // element; one byte or bf16 per thread when staging; f32 staging (94.8 KB
 // for segment 3's 8x8 tile, 2 blocks an SM).
 //
-// f32 output (the card-vs-CPU check): segment_kernel, the same tiles of
-// 16x16 and 8x8 on the CUDA cores in f32, weights read by __ldg.
+// f32 output (the shipped configs' dtype, and the card-vs-CPU check):
+// segment_kernel, the same tiles of 16x16 and 8x8 on the CUDA cores in
+// f32, weights read by __ldg.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>

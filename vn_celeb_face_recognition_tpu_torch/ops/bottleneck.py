@@ -8,14 +8,16 @@ The emotion net runs it on layer1's blocks 1-2 (56x56, C = 256, P = 64)
 and layer2's blocks 1-3 (28x28, C = 512, P = 128).
 
 The CUDA kernel ``csrc/bottleneck_chain.cu`` runs each block as three
-launches of one implicit-GEMM template on the tensor cores (bf16, f32
-sums): conv1 (x -> t1), conv2 (9 taps of t1 -> t2) and conv3 (t2 -> y,
-plus the residual x), with t1 and t2 in device memory, scratch in the
-activation dtype that ``bottleneck_chain`` allocates once per chain. The
-bf16 weights are packed [tap][out][in] (``pack_gemm_weights``). f32 inputs (the
-card-vs-CPU check) take the kernel file's plain f32 path, also three
-launches per block, on the CUDA cores. Every launch is counted: a chain
-of n blocks counts 3n.
+launches of an implicit GEMM on the tensor cores: conv1 (x -> t1), conv2
+(9 taps of t1 -> t2) and conv3 (t2 -> y, plus the residual x), with t1
+and t2 in device memory, scratch in the activation dtype that
+``bottleneck_chain`` allocates once per chain. bf16 activations take
+``conv_gemm_bf16`` (bf16 products, f32 sums); f32 activations, the dtype
+of every shipped config, take ``conv_gemm_tf32x3``, the same tiles with
+each f32 operand split into two TF32 halves and three products a step
+(3xTF32: f32-accurate, on the tensor cores). Both read the weights packed
+[tap][out][in] by ``pack_gemm_weights`` and take P a multiple of 64 and C
+of 128. Every launch is counted: a chain of n blocks counts 3n.
 
 ``bottleneck_chain`` takes the plain PyTorch version (the blocks' own
 NCHW modules) for CPU tensors only and launches the kernel for CUDA
@@ -54,9 +56,10 @@ def fold_block(block, dtype):
 
 @torch.no_grad()
 def pack_gemm_weights(folded):
-    """``fold_block``'s weights -> the bf16 kernel's B operands, packed
-    [tap][out][in] with the input channels contiguous: (w1 [1, P, C], b1,
-    w2 [9, P, P], b2, w3 [1, C, P], b3); the biases stay f32."""
+    """``fold_block``'s weights -> the kernel's B operands in their dtype
+    (bf16 or f32), packed [tap][out][in] with the input channels
+    contiguous: (w1 [1, P, C], b1, w2 [9, P, P], b2, w3 [1, C, P], b3);
+    the biases stay f32."""
     w1, b1, w2, b2, w3, b3 = folded
     return (w1.t().unsqueeze(0).contiguous(), b1,
             w2.transpose(1, 2).contiguous(), b2,
@@ -86,18 +89,18 @@ def bottleneck_chain_plain(blocks, x):
 @torch.no_grad()
 def bottleneck_chain_kernel(blocks, x):
     """The same chain through the CUDA kernel (CUDA tensors only): three
-    launches per block, in bf16 and in f32."""
+    launches per block, in bf16 and in f32 (3xTF32)."""
     _check(blocks, x)
     if x.dtype not in (torch.float32, torch.bfloat16):
         raise ValueError(f"unsupported dtype {x.dtype}")
-    x = x.contiguous()
-    kernels.require_cuda_tensor(x, "x")
     n, h, w, c = x.shape
     p = blocks[0].conv1.out_channels if blocks else c // 4
+    if p % 64 or c % 128:
+        raise ValueError(f"the kernel takes P a multiple of 64 and C of 128, "
+                         f"got C={c}, P={p}")
+    x = x.contiguous()
+    kernels.require_cuda_tensor(x, "x")
     bf16 = x.dtype == torch.bfloat16
-    if bf16 and (p % 64 or c % 128):
-        raise ValueError(f"the bf16 kernel takes P a multiple of 64 and C of "
-                         f"128, got C={c}, P={p}")
     dev = x.device
     if not blocks or n == 0:
         return x.clone()
@@ -105,7 +108,6 @@ def bottleneck_chain_kernel(blocks, x):
     # conv1's and conv2's outputs, in device memory
     t1 = torch.empty((n, h, w, p), dtype=x.dtype, device=dev)
     t2 = torch.empty_like(t1)
-    pack = pack_gemm_weights if bf16 else (lambda folded: folded)
     lib = kernels.library()
     stream = torch.cuda.current_stream(dev).cuda_stream
     launched = ctypes.c_int(0)
@@ -113,7 +115,7 @@ def bottleneck_chain_kernel(blocks, x):
     for i, blk in enumerate(blocks):
         w1, b1, w2, b2, w3, b3 = kernels.cached_fold(
             blk, ("bottleneck", str(dev), x.dtype),
-            lambda blk=blk: tuple(t.to(dev) for t in pack(
+            lambda blk=blk: tuple(t.to(dev) for t in pack_gemm_weights(
                 fold_block(blk, x.dtype))))
         dst = bufs[i % 2]
         err = lib.vn_bottleneck_block(

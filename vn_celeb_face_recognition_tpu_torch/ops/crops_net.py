@@ -8,14 +8,19 @@ normalised NHWC crops, [N, 24, 24, 3] -> [N, 9, 9, 48] (RNet) and
 ``ONet.forward`` run their trunk through ``crop_net_trunk`` and then
 their tails.
 
-For CUDA tensors the trunk is one launch of ``csrc/crop_net_trunk.cu``:
-in bf16 on the tensor cores (persistent blocks, the weights packed by
-``pack_trunk_weights_mma`` resident in shared memory, conv1 as a small
-GEMM, conv2 as an implicit GEMM over the NHWC pooled map rounded to
-bf16), in f32 on the CUDA cores (one thread block per crop, f32 sums,
-``pack_trunk_weights``). For CPU tensors it is ``crop_net_trunk_plain``,
-the net's own modules in the crops' dtype. The TPU kernel's
-space-to-depth packing and subposition matrix are not carried over.
+For CUDA tensors the trunk is one launch of ``csrc/crop_net_trunk.cu``,
+on the tensor cores in both dtypes: persistent blocks hold the packed
+weights in shared memory, conv1 runs as a small GEMM (its bias carried by
+a column of ones) band by band into an NHWC pooled map, and conv2 as an
+implicit GEMM over that map. bf16 crops take ``crop_net_trunk_mma``
+(bf16 products with f32 sums, the pooled map rounded to bf16, weights
+from ``pack_trunk_weights_mma``); f32 crops, the dtype of every shipped
+config, take ``crop_net_trunk_tf32x3``, whose products split each f32
+operand into two TF32 halves (3xTF32, f32-accurate) and whose pooled map
+stays f32 (weights from ``pack_trunk_weights_tf32x3``). For CPU tensors
+it is ``crop_net_trunk_plain``, the net's own modules in the crops'
+dtype. The TPU kernel's space-to-depth packing and subposition matrix
+are not carried over.
 """
 
 import torch
@@ -42,20 +47,26 @@ class CropNetSpec:
             + 2 * self.c2
 
 
-RNET_SPEC = CropNetSpec("rnet", 24, 28, 48, 0, 11)  # 24 -> 22 -> 11 -> 9
-ONET_SPEC = CropNetSpec("onet", 48, 32, 64, 1, 4)   # 48 -> 46 -> 23 -> 21
-
-# the bf16 kernel's operand layout (csrc/crop_net_trunk.cu): conv1 channels
+# the kernel's operand layout (csrc/crop_net_trunk.cu): conv1 channels
 # padded to MMA_C1, w1 rows [MMA_C1][MMA_K1P] over k = (ky*3 + kx)*3 + ci
 # (27 used; k = 27 holds the bias), w2 rows [C2][MMA_K2P] over
 # k = (ky*3 + kx)*MMA_C1 + ci, and
-# the pooled map NHWC with MMA_C1 channels a pixel (the k16 steps of conv2
-# are one tap x 16 channels each)
+# the pooled map NHWC with MMA_C1 channels a pixel (the bf16 grid's k16
+# steps of conv2 are one tap x 16 channels each, the f32 grid's k8 steps
+# one tap x 8 channels)
 MMA_C1, MMA_K1P = 32, 40
 MMA_K2 = 9 * MMA_C1
 MMA_K2P = MMA_K2 + 8
-# conv1 bands of the bf16 kernel, in pooled rows
+# conv1 bands of both kernels, in pooled rows
 MMA_BAND = 2
+# the f32 kernel's operands: the same k orders, f32 rows of 36 and 292
+# floats (an odd number of 16-byte units, so ldmatrix rows of eight
+# neighbours fall in distinct bank groups)
+TF32_K1P, TF32_K2P = MMA_C1 + 4, MMA_K2 + 4
+
+# 24 -> 22 -> 11 -> 9 and 48 -> 46 -> 23 -> 21
+RNET_SPEC = CropNetSpec("rnet", 24, 28, 48, 0, MMA_BAND)
+ONET_SPEC = CropNetSpec("onet", 48, 32, 64, 1, MMA_BAND)
 
 
 def _check(net, crops, spec):
@@ -74,9 +85,10 @@ def _check_weights(net, spec):
 
 @torch.no_grad()
 def pack_trunk_weights(net, spec):
-    """conv1/prelu1/conv2/prelu2 -> [n_weights] f32 in the f32 kernel's
-    order: w1 [(ky*3 + kx)*3 + ci][C1], b1, a1, w2 [(ky*3 + kx)*C1 + ci]
-    [C2], b2, a2."""
+    """conv1/prelu1/conv2/prelu2 -> [n_weights] f32, tap-major and
+    unpadded: w1 [(ky*3 + kx)*3 + ci][C1], b1, a1, w2 [(ky*3 + kx)*C1 + ci]
+    [C2], b2, a2 (the flat layout that the kernels' packings are held
+    to)."""
     parts = [net.conv1.weight.permute(2, 3, 1, 0).reshape(-1),
              net.conv1.bias, net.prelu1.weight,
              net.conv2.weight.permute(2, 3, 1, 0).reshape(-1),
@@ -84,8 +96,28 @@ def pack_trunk_weights(net, spec):
     flat = torch.cat([p.reshape(-1).to(torch.float32) for p in parts])
     if flat.numel() != spec.n_weights():
         raise ValueError(f"{spec.name} has {flat.numel()} trunk weights, "
-                         f"the kernel expects {spec.n_weights()}")
+                         f"the spec expects {spec.n_weights()}")
     return flat.contiguous()
+
+
+def _gemm_operands(net, spec, k1p, k2p):
+    """The GEMM kernels' operands in f32: w1 [MMA_C1][k1p] with conv1's
+    bias in column 27, w2 [C2][k2p] (K-major B rows; padded channels, taps
+    and columns are zero) and the parameters a1[MMA_C1], b2[C2], a2[C2]."""
+    c1, c2 = spec.c1, spec.c2
+    _check_weights(net, spec)
+    w1 = torch.zeros((MMA_C1, k1p))
+    w1[:c1, :27] = net.conv1.weight.permute(0, 2, 3, 1).reshape(c1, 27)
+    w1[:c1, 27] = net.conv1.bias
+    taps = torch.zeros((c2, 9, MMA_C1))
+    taps[:, :, :c1] = net.conv2.weight.permute(0, 2, 3, 1).reshape(c2, 9, c1)
+    w2 = torch.zeros((c2, k2p))
+    w2[:, :MMA_K2] = taps.reshape(c2, MMA_K2)
+    par = torch.zeros(MMA_C1 + 2 * c2)
+    for off, p in ((0, net.prelu1.weight), (MMA_C1, net.conv2.bias),
+                   (MMA_C1 + c2, net.prelu2.weight)):
+        par[off:off + p.numel()] = p.reshape(-1)
+    return w1, w2, par
 
 
 @torch.no_grad()
@@ -96,22 +128,21 @@ def pack_trunk_weights_mma(net, spec):
     channels, taps and columns are zero), then f32 a1[MMA_C1], b2[C2],
     a2[C2] holding bf16 values, as the plain bf16 version casts its
     parameters."""
-    c1, c2 = spec.c1, spec.c2
-    _check_weights(net, spec)
-    w1 = torch.zeros((MMA_C1, MMA_K1P), dtype=torch.bfloat16)
-    w1[:c1, :27] = net.conv1.weight.permute(0, 2, 3, 1).reshape(c1, 27)
-    w1[:c1, 27] = net.conv1.bias
-    w2 = torch.zeros((c2, 9, MMA_C1), dtype=torch.bfloat16)
-    w2[:, :, :c1] = net.conv2.weight.permute(0, 2, 3, 1).reshape(c2, 9, c1)
-    w2 = torch.cat([w2.reshape(c2, MMA_K2),
-                    torch.zeros((c2, MMA_K2P - MMA_K2), dtype=torch.bfloat16)],
-                   1)
-    par = torch.zeros(MMA_C1 + 2 * c2)
-    for off, p in ((0, net.prelu1.weight), (MMA_C1, net.conv2.bias),
-                   (MMA_C1 + c2, net.prelu2.weight)):
-        par[off:off + p.numel()] = p.reshape(-1).to(torch.bfloat16)
-    return torch.cat([w1.reshape(-1).view(torch.uint8),
-                      w2.reshape(-1).view(torch.uint8), par.view(torch.uint8)])
+    w1, w2, par = _gemm_operands(net, spec, MMA_K1P, MMA_K2P)
+    bf16 = torch.bfloat16
+    return torch.cat([w1.to(bf16).reshape(-1).view(torch.uint8),
+                      w2.to(bf16).reshape(-1).view(torch.uint8),
+                      par.to(bf16).to(torch.float32).view(torch.uint8)])
+
+
+@torch.no_grad()
+def pack_trunk_weights_tf32x3(net, spec):
+    """The f32 kernel's weights as one f32 buffer, the bf16 kernel's
+    operands at the f32 pitches and unrounded: w1 [MMA_C1][TF32_K1P] with
+    conv1's bias in column 27, w2 [C2][TF32_K2P], then a1[MMA_C1], b2[C2],
+    a2[C2]."""
+    w1, w2, par = _gemm_operands(net, spec, TF32_K1P, TF32_K2P)
+    return torch.cat([w1.reshape(-1), w2.reshape(-1), par])
 
 
 @torch.no_grad()
@@ -140,7 +171,7 @@ def crop_net_trunk_kernel(net, crops, spec):
     bf16 = dtype == torch.bfloat16
     if crops.data_ptr() % 16:  # the kernel stages crops in 16-byte rows
         crops = crops.clone()
-    pack = pack_trunk_weights_mma if bf16 else pack_trunk_weights
+    pack = pack_trunk_weights_mma if bf16 else pack_trunk_weights_tf32x3
     weights = kernels.cached_fold(
         net, ("crop_net_trunk", str(dev), str(dtype)),
         lambda: pack(net, spec).to(dev))
