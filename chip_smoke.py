@@ -66,8 +66,13 @@ Phases, one line of output each (a failed phase exits non-zero):
       pasted into it;
   15. K6 (mnet_stage1) vs the stage's cuDNN modules, 128x640x640 and
       ragged 97x131 frames (also a view not on 16 bytes), with each
-      segment's device time beside its own bytes/FLOP floor;
+      segment's device time beside its own bytes/FLOP floor; K6-f32, its
+      f32 grids (3xTF32) held at 1e-4 on the ragged frames, the view and
+      8 frames of 640 px, and timed there beside the 3xtf32, three-launch
+      and f32-peak bounds;
   16. K7 (emotion_stem) vs resize + normalise + cuDNN stem, 512 faces;
+      K7-f32, its f32 grid (3xTF32) on 64 faces, held and timed the same
+      way;
   17. K8 (bottleneck_chain) vs the blocks' cuDNN modules, layer1 and
       layer2 tails at 512 faces and at 3 (a ragged last tile), f32
       (3xTF32) on 16 faces, with each convolution's device time, TFLOP/s
@@ -110,7 +115,9 @@ Phases, one line of output each (a failed phase exits non-zero):
       K8's f32 grid (3xTF32) on the emotion tails' own inputs of (b)'s
       first chunk (taken by a forward hook), held to the plain version
       in f32 at 1e-4 and timed beside its 3xtf32 floor, its f32-peak
-      bound and cuDNN.
+      bound and cuDNN; cli-k7-f32 and cli-k6-f32 the same for K7's and
+      K6's f32 grids on that chunk's own faces and frames (forward
+      pre-hooks on the emotion net and RetinaFace's body).
   23. the trainers through ``cli.train.main`` and ``cli.eval.main``,
       datasets written from a seed: (a) cfg/train_cfg_emb_classify.json
       (MLP 512-2048-1000 on 1,000 classes x 6 .npz embeddings; epochs cut
@@ -283,8 +290,9 @@ KERNEL_SOURCES = {
 KERNEL_GRIDS = {
     "pnet_chain": ("pnet_frames_f32", "pnet_frames_mma"),
     "similarity_warp": ("similarity_warp_kernel",),
-    "mnet_stage1": ("segment_kernel", "segment_mma_first", "segment_mma"),
-    "emotion_stem": ("emotion_stem_kernel", "emotion_stem_mma"),
+    "mnet_stage1": ("segment_tf32_first", "segment_tf32",
+                    "segment_mma_first", "segment_mma"),
+    "emotion_stem": ("emotion_stem_tf32x3", "emotion_stem_mma"),
     "bottleneck_chain": ("conv_gemm_bf16", "conv_gemm_tf32x3"),
     "nms_keep_mask": ("nms_keep_tiled",),
     "crop_area_resize": ("band_totals_kernel", "band_scan_kernel",
@@ -295,9 +303,11 @@ KERNEL_GRIDS = {
 # in the profiler's (demangled or mangled) kernel name
 CONV_ARGS = re.compile(r"conv_gemm_bf16(?:<(\d+), (\d+), (true|false)>|"
                        r"ILi(\d+)ELi(\d+)ELb([01])E)")
-# K6's bf16 segments by grid: segment_mma_first is segment 1, and the
-# first template argument (C_in) of segment_mma tells segments 2 and 3
-SEGMENT_ARGS = re.compile(r"segment_mma(?:(_first)|<(\d+),|ILi(\d+)E)")
+# K6's segments by grid, in bf16 (segment_mma*) or f32 (segment_tf32*):
+# the _first grid is segment 1, and the first template argument (C_in) of
+# the other tells segments 2 and 3
+SEGMENT_ARGS = re.compile(
+    r"segment_(?:mma|tf32)(?:(_first)|<(\d+),|ILi(\d+)E)")
 # a 12 MP photo (4032x3024), above the 8,421,504 pixels whose int32 prefix
 # sums of 255 stay below 2**31
 BIG_H, BIG_W = 3024, 4032
@@ -1257,16 +1267,17 @@ def mnet_stage1_flops(h, w):
     return sum(stage1_block_flops(h, w))
 
 
-def mnet_segment_work(b, h, w):
-    """(bytes, FLOPs) of K6's three bf16 launches on b h x w frames: each
-    reads its input once (u8 frames, then bf16 scratch) and writes its
-    output once (bf16), and does the FLOPs of its two blocks."""
+def mnet_segment_work(b, h, w, itemsize=2):
+    """(bytes, FLOPs) of K6's three launches on b h x w frames: each reads
+    its input once (u8 frames, then the scratch) and writes its output
+    once (bf16, or f32 with ``itemsize`` 4), and does the FLOPs of its two
+    blocks."""
     flops = stage1_block_flops(h, w)
     sides, sizes = [(h, w)], [3]
     for c in (16, 32, 64):
         h, w = (h + 1) // 2, (w + 1) // 2
         sides.append((h, w))
-        sizes.append(2 * c)
+        sizes.append(itemsize * c)
     work = {}
     for i in range(3):
         (hi, wi), (ho, wo) = sides[i], sides[i + 1]
@@ -1521,9 +1532,9 @@ def conv_device_ms(torch, fn, runs=20):
 
 
 def segment_role(key):
-    """K6's bf16 segment of a grid, from its name and first template
-    argument."""
-    if "segment_mma" not in key:
+    """K6's segment of a grid (bf16 or f32), from its name and first
+    template argument."""
+    if "segment_mma" not in key and "segment_tf32" not in key:
         return None
     args = SEGMENT_ARGS.search(key)
     cin = args and (args.group(2) or args.group(3))
@@ -2236,11 +2247,21 @@ def cli_paths(torch, kernels, dev, card, results, work):
               thresholds, frames_b, fidx_b, counts_b,
               REC_LAUNCHES["retinaface"]))
     lines, medians = [], {}
-    # (b)'s emotion tails' inputs of its first chunk, for cli-k8-f32
+    # (b)'s emotion tails' inputs of its first chunk, for cli-k8-f32, and
+    # K7's faces and K6's frames of that chunk, for cli-k7-f32, cli-k6-f32
     emo_b, taken = sets["retinaface"][4].module, {}
+    body_b = sets["retinaface"][1].net.body
     hooks = [layer[0].register_forward_hook(
         lambda mod, args, y, n=n: taken.setdefault(n, y.detach()))
         for n, layer in (("l1", emo_b.layer1), ("l2", emo_b.layer2))]
+
+    def take_input(n):
+        def hook(mod, args):  # returns None: the call's inputs unchanged
+            taken.setdefault(n, args[0].detach())
+        return hook
+
+    hooks += [m.register_forward_pre_hook(take_input(n))
+              for n, m in (("k7", emo_b), ("k6", body_b))]
     for key, what, args, models, thr, frames, fidx, counts, per_run in paths:
         rows, times, launches, log = cli_drive(
             torch, kernels, DV, args, models, thr, frames, fps, fidx)
@@ -2273,6 +2294,15 @@ def cli_paths(torch, kernels, dev, card, results, work):
           f"card ({card}); K1-K8 each launched through the CLIs: "
           + " | ".join(lines))
     k8_f32_at(torch, kernels, emo_b, taken, card, results)
+    row, text = k7_f32_at(torch, kernels, emo_b.conv1, emo_b.bn1,
+                          taken["k7"])
+    results["emotion_stem"]["f32_cli"] = row
+    phase("cli-k7-f32", "emotion_stem f32 (3xTF32) on the 112 px faces of a "
+          f"CLI (b) chunk, one launch: {text} ({TIMING}; {card})")
+    row, text = k6_f32_at(torch, kernels, body_b.stage1, taken["k6"])
+    results["mnet_stage1"]["f32_cli"] = row
+    phase("cli-k6-f32", "mnet_stage1 f32 (3xTF32) on the frames of a CLI (b) "
+          f"chunk, three launches: {text} ({TIMING}; {card})")
     del taken
 
     # celeb_statistic's dynamic-interval tracker.json of (b): as the CLI
@@ -4193,6 +4223,116 @@ def k8_f32_at(torch, kernels, emo, taken, card, results):
           f"{tot['bound_f32_peak_ms']:.3f} ms ({TIMING}; {card})")
 
 
+def k7_f32_at(torch, kernels, conv1, bn1, faces):
+    """K7's f32 grid (3xTF32) on ``faces`` [K, 112, 112, 3] f32: held to
+    emotion_stem_plain in f32 (TF32 off) within rtol 1e-4 and atol 1e-4 x
+    max|ref|, its one launch held by through_kernel, and timed: the grid's
+    device time (torch.profiler), the wrapper call (CUDA events) and the
+    plain version (resize, normalise, then the stem's modules on cuDNN,
+    TF32 off), beside the 3xtf32 floor (faces read and features written
+    once, 4 bytes a value; the folded 4x4 conv's multiply-adds as three
+    TF32 products at the TF32 peak) and the bound at the f32 peak. A call
+    under the floor fails. Returns (row, text)."""
+    from vn_celeb_face_recognition_tpu_torch.ops import emotion_stem as K7
+
+    k = int(faces.shape[0])
+    if faces.dtype != torch.float32 or tuple(faces.shape[1:]) != (112, 112,
+                                                                  3):
+        fail(f"K7 f32: faces are {faces.dtype} {tuple(faces.shape)}")
+    got = through_kernel(kernels, "emotion_stem", lambda: K7.emotion_stem(
+        conv1, bn1, faces, torch.float32))
+    want = K7.emotion_stem_plain(conv1, bn1, faces, torch.float32)
+    scale = float(want.abs().max())
+    err = check_close(torch, got, want, 1e-4, 1e-4 * scale,
+                      f"K7 f32 on {k} faces")
+    ms, call_ms, plain_ms = timed(
+        torch, "emotion_stem",
+        lambda: K7.emotion_stem(conv1, bn1, faces, torch.float32),
+        lambda: K7.emotion_stem_plain(conv1, bn1, faces, torch.float32))
+    nbytes = (faces.numel() + got.numel()) * 4
+    flops = k * 112 * 112 * 64 * 48 * 2
+    floor_ms, floor_by = bound_3xtf32(nbytes, flops)
+    f32_ms, f32_by = bound(nbytes, flops, PEAK_F32)
+    if call_ms < floor_ms:
+        fail(f"K7 f32 on {k} faces: call {call_ms:.4f} ms is under its "
+             f"3xtf32 floor {floor_ms:.4f} ms")
+    row = dict(k=k, max_abs_err=err, ms=ms, call_ms=call_ms,
+               plain_ms=plain_ms, bound_ms=floor_ms, bound_by=floor_by,
+               bound_f32_peak_ms=f32_ms)
+    return row, (
+        f"{k} faces: max abs err {err:.3e} vs plain f32 (max|ref| "
+        f"{scale:.3e}; 1e-4 x max|ref|); kernel {ms:.4f} ms "
+        f"({flops / ms / 1e9:.1f} TFLOP/s, {nbytes / ms / 1e6:.0f} GB/s), "
+        f"call {call_ms:.4f} ms, plain (cuDNN, TF32 off) {plain_ms:.4f} ms; "
+        f"3xtf32 floor {floor_ms:.4f} ms ({floor_by}), f32-peak bound "
+        f"{f32_ms:.4f} ms ({f32_by}; {flops / 1e9:.2f} GFLOP, "
+        f"{nbytes / 1e6:.1f} MB)")
+
+
+def k6_f32_at(torch, kernels, stage1, frames):
+    """K6's f32 grids (3xTF32) on uint8 ``frames``: held to
+    mnet_stage1_plain in f32 (TF32 off) within rtol and atol 1e-4, its
+    three launches held by through_kernel, and timed: the grids' device
+    time (torch.profiler), in all and by segment, the wrapper call (CUDA
+    events) and the plain version (the stage's modules on cuDNN, TF32
+    off), beside the function's 3xtf32 floor (frames read and features
+    written once; the multiply-adds as three TF32 products at the TF32
+    peak), the three-launch floor (each segment's input read and output
+    written once: the f32 scratch too) and the bound at the f32 peak. A
+    call under the function's floor fails. Returns (row, text)."""
+    from vn_celeb_face_recognition_tpu_torch.models.retinaface import (
+        CHANNELS_SUBTRACT,
+    )
+    from vn_celeb_face_recognition_tpu_torch.ops import planar_s1 as K6
+
+    b, h, w, _ = (int(d) for d in frames.shape)
+
+    def run():
+        return K6.mnet_stage1(stage1, frames, CHANNELS_SUBTRACT,
+                              torch.float32)
+
+    got = through_kernel(kernels, "mnet_stage1", run, launches=3)
+    want = K6.mnet_stage1_plain(stage1, frames, CHANNELS_SUBTRACT,
+                                torch.float32)
+    err = check_close(torch, got, want, 1e-4, 1e-4,
+                      f"K6 f32 on {b}x{h}x{w} frames")
+    ms, call_ms, plain_ms = timed(
+        torch, "mnet_stage1", run,
+        lambda: K6.mnet_stage1_plain(stage1, frames, CHANNELS_SUBTRACT,
+                                     torch.float32))
+    per_seg = device_ms_by(torch, run, segment_role)
+    work = mnet_segment_work(b, h, w, itemsize=4)
+    if sorted(per_seg) != sorted(work):
+        fail(f"K6 f32: profiled segments {sorted(per_seg)}")
+    flops = b * mnet_stage1_flops(h, w)
+    nbytes = frames.numel() + got.numel() * 4
+    floor_ms, floor_by = bound_3xtf32(nbytes, flops)
+    launch_ms, launch_by = bound_3xtf32(sum(n for n, _ in work.values()),
+                                        flops)
+    f32_ms, f32_by = bound(nbytes, flops, PEAK_F32)
+    if call_ms < floor_ms:
+        fail(f"K6 f32 on {b}x{h}x{w} frames: call {call_ms:.4f} ms is under "
+             f"its 3xtf32 floor {floor_ms:.4f} ms")
+    segs = []
+    for seg, (seg_bytes, seg_flops) in work.items():
+        t = per_seg[seg]
+        seg_floor, seg_by = bound_3xtf32(seg_bytes, seg_flops)
+        segs.append(f"{seg} {t:.4f} ms = {seg_bytes / t / 1e6:.0f} GB/s "
+                    f"(own floor {seg_floor:.4f} ms, {seg_by})")
+    row = dict(frames=[b, h, w], max_abs_err=err, ms=ms, call_ms=call_ms,
+               plain_ms=plain_ms, bound_ms=floor_ms, bound_by=floor_by,
+               three_launch_floor_ms=launch_ms, bound_f32_peak_ms=f32_ms,
+               segment_ms=per_seg)
+    return row, (
+        f"{b}x{h}x{w} frames: max abs err {err:.3e} vs plain f32 (rtol/atol "
+        f"1e-4); kernel {ms:.4f} ms ({'; '.join(segs)}), call {call_ms:.4f} "
+        f"ms, plain (cuDNN, TF32 off) {plain_ms:.4f} ms; 3xtf32 floor "
+        f"{floor_ms:.4f} ms ({floor_by}), three-launch floor {launch_ms:.4f} "
+        f"ms ({launch_by}; {sum(n for n, _ in work.values()) / 1e6:.1f} MB "
+        f"with the f32 scratch), f32-peak bound {f32_ms:.4f} ms ({f32_by}; "
+        f"{flops / 1e9:.2f} GFLOP, {nbytes / 1e6:.1f} MB)")
+
+
 def face_batch(torch, n, size):
     """``n`` standardised faces of ``size`` px, NCHW f32: the repo's face
     crops resized, in turn."""
@@ -4781,54 +4921,38 @@ def fit_export(torch, FD, fit, out, dev):
 
 def fit_k6(torch, K6, fit, card, results):
     """Phase 29's ``fit-k6`` line: K6's cached fold after training, and
-    its f32 grid (what the fit's evaluations launch) timed at their shape
-    against its plain version and bound."""
+    its f32 grids (what the fit's evaluations launch) held and timed at
+    their shape (``k6_f32_at``), the bf16 grids held."""
     from vn_celeb_face_recognition_tpu_torch.models.retinaface import (
         CHANNELS_SUBTRACT,
     )
+    from vn_celeb_face_recognition_tpu_torch.utils import kernels
 
     args = fit.args
     stage1 = fit.net.body.stage1
     frames = fit.batch()[0]
     fit.net.eval()
     try:
-        got32 = K6.mnet_stage1(stage1, frames, CHANNELS_SUBTRACT,
-                               torch.float32)
+        row, text = k6_f32_at(torch, kernels, stage1, frames)
         want32 = K6.mnet_stage1_plain(stage1, frames, CHANNELS_SUBTRACT,
                                       torch.float32)
-        err32 = check_close(torch, got32, want32, 1e-4, 1e-4,
-                            "fit-k6 f32")
         got16 = K6.mnet_stage1(stage1, frames, CHANNELS_SUBTRACT,
                                torch.bfloat16)
         _, rel, rel_max, plain16 = check_bf16(
             torch, got16, want32, K6.mnet_stage1_plain(
                 stage1, frames, CHANNELS_SUBTRACT, torch.bfloat16),
             "fit-k6 bf16")
-        ms, call_ms, plain_ms = timed(
-            torch, "mnet_stage1",
-            lambda: K6.mnet_stage1(stage1, frames, CHANNELS_SUBTRACT,
-                                   torch.float32),
-            lambda: K6.mnet_stage1_plain(stage1, frames, CHANNELS_SUBTRACT,
-                                         torch.float32))
     finally:
         fit.net.train()
-    b = frames.shape[0]
-    bound_ms, bound_by = bound(frames.numel() + got32.numel() * 4,
-                               b * mnet_stage1_flops(args.size, args.size),
-                               PEAK_F32)
-    results["mnet_stage1"]["fit_f32"] = dict(
-        ms=ms, call_ms=call_ms, plain_ms=plain_ms, bound_ms=bound_ms,
-        bound_by=bound_by)
+    results["mnet_stage1"]["fit_f32"] = row
     phase("fit-k6", f"K6 on the fitted stage 1 after {FIT_PROFILE_STEPS} "
           f"more AdamW steps (the weights and running statistics written in "
           f"place since the last evaluation folded them) against "
           f"mnet_stage1_plain in eval mode on {args.batch}x{args.size}x"
-          f"{args.size} scenes: f32 max abs err {err32:.3e} (rtol/atol "
-          f"1e-4); bf16 rel L2 {rel:.2e}, max/max|ref| {rel_max:.2e} (plain "
-          f"bf16 rel L2 {plain16:.2e}; gates {BF16_REL_L2}, {BF16_REL_MAX}); "
-          f"the f32 grid the evaluations launch: kernel {ms:.3f} ms, call "
-          f"{call_ms:.3f} ms, plain {plain_ms:.3f} ms, bound {bound_ms:.3f} "
-          f"ms ({bound_by}, f32 peak) ({TIMING}; {card})")
+          f"{args.size} scenes: bf16 rel L2 {rel:.2e}, max/max|ref| "
+          f"{rel_max:.2e} (plain bf16 rel L2 {plain16:.2e}; gates "
+          f"{BF16_REL_L2}, {BF16_REL_MAX}); the f32 grids the evaluations "
+          f"launch, on {text} ({TIMING}; {card})")
 
 
 def fit_card_vs_cpu(torch, fit, dev, card):
@@ -5712,18 +5836,18 @@ def main():
         0, 256, (3, 97, 131, 3), dtype=np.uint8)).to(dev)
     ragged = []
     for what, fr in (("2x97x131", odd[:2]), ("unaligned view", odd[1:])):
+        want_o = K6.mnet_stage1_plain(stage1, fr, sub, torch.float32)
         _, rel_o, rel_max_o, _ = check_bf16(
-            torch, K6.mnet_stage1(stage1, fr, sub, torch.bfloat16),
-            K6.mnet_stage1_plain(stage1, fr, sub, torch.float32),
+            torch, K6.mnet_stage1(stage1, fr, sub, torch.bfloat16), want_o,
             K6.mnet_stage1_plain(stage1, fr, sub, torch.bfloat16),
             f"K6 bf16 {what}")
-        ragged.append(f"{what} rel L2 {rel_o:.2e}, max/max|ref| "
-                      f"{rel_max_o:.2e}")
-    few = prod[:8]
-    err32 = check_close(
-        torch, K6.mnet_stage1(stage1, few, sub, torch.float32),
-        K6.mnet_stage1_plain(stage1, few, sub, torch.float32), 1e-4, 1e-4,
-        "K6 f32")
+        err_o = check_close(
+            torch, K6.mnet_stage1(stage1, fr, sub, torch.float32), want_o,
+            1e-4, 1e-4, f"K6 f32 {what}")
+        ragged.append(f"{what} bf16 rel L2 {rel_o:.2e}, max/max|ref| "
+                      f"{rel_max_o:.2e}, f32 max abs err {err_o:.3e}")
+    # the f32 grids on 8 frames: the fit's evaluation shape
+    row32, text32 = k6_f32_at(torch, kernels, stage1, prod[:8])
     ms, call_ms, plain_ms = timed(
         torch, "mnet_stage1",
         lambda: K6.mnet_stage1(stage1, prod, sub, torch.bfloat16),
@@ -5751,12 +5875,15 @@ def main():
     phase("K6", f"mnet_stage1 {PROD_BATCH}x{SIZE}x{SIZE} u8 -> "
           f"{tuple(got.shape)} bf16 vs plain f32: max abs err {err:.3e}, "
           f"rel L2 {rel_l2:.2e}, max/max|ref| {rel_max:.2e} (plain bf16 "
-          f"rel L2 {plain16:.2e}); {'; '.join(ragged)}; f32 kernel on 8 "
-          f"frames max abs err {err32:.3e} (rtol/atol 1e-4); kernel "
+          f"rel L2 {plain16:.2e}); {'; '.join(ragged)} (f32: rtol/atol "
+          f"1e-4); kernel "
           f"{ms:.3f} ms ("
           f"{'; '.join(segs)}), call {call_ms:.3f} ms, plain {plain_ms:.3f} "
           f"ms, bound {bound_ms:.3f} ms ({bound_by}, bf16 peak) ({TIMING}; "
           f"{card})")
+    results["mnet_stage1"]["f32"] = row32
+    phase("K6-f32", f"mnet_stage1 f32 (3xTF32), three launches, on "
+          f"{text32} ({TIMING}; {card})")
     del got, want
 
     # ---- 16. K7 vs plain ------------------------------------------------
@@ -5769,11 +5896,7 @@ def main():
     err, rel_l2, rel_max, plain16 = check_bf16(
         torch, got, want, K7.emotion_stem_plain(conv1, bn1, faces,
                                                 torch.bfloat16), "K7 bf16")
-    scale = float(want.abs().max())
-    err32 = check_close(
-        torch, K7.emotion_stem(conv1, bn1, faces[:64], torch.float32),
-        K7.emotion_stem_plain(conv1, bn1, faces[:64], torch.float32), 1e-4,
-        1e-4 * scale, "K7 f32")
+    row32, text32 = k7_f32_at(torch, kernels, conv1, bn1, faces[:64])
     ms, call_ms, plain_ms = timed(
         torch, "emotion_stem",
         lambda: K7.emotion_stem(conv1, bn1, faces, torch.bfloat16),
@@ -5788,11 +5911,13 @@ def main():
     phase("K7", f"emotion_stem K={PROD_FACES} 112 px f32 -> "
           f"{tuple(got.shape)} bf16 vs plain f32: max abs err {err:.3e}, "
           f"rel L2 {rel_l2:.2e}, max/max|ref| {rel_max:.2e} (plain bf16 "
-          f"rel L2 {plain16:.2e}); f32 kernel on 64 faces max "
-          f"abs err {err32:.3e} (rtol 1e-4, atol 1e-4 x max|ref|); kernel "
+          f"rel L2 {plain16:.2e}); kernel "
           f"{ms:.3f} ms, call {call_ms:.3f} ms, plain {plain_ms:.3f} ms, "
           f"bound {bound_ms:.3f} ms ({bound_by}, folded 4x4 conv at the bf16 "
           f"peak) ({TIMING}; {card})")
+    results["emotion_stem"]["f32"] = row32
+    phase("K7-f32", f"emotion_stem f32 (3xTF32), one launch, on {text32} "
+          f"({TIMING}; {card})")
     del faces, got, want
 
     # ---- 17. K8 vs plain -----------------------------------------------

@@ -21,6 +21,7 @@ torch = pytest.importorskip("torch")
 from vn_celeb_face_recognition_tpu_torch.models.resnet_common import ResLayer
 from vn_celeb_face_recognition_tpu_torch.ops import bottleneck as K8
 from vn_celeb_face_recognition_tpu_torch.utils import kernels
+from torch_shared import two_threads  # noqa: F401 (autouse)
 
 BM, BK = 128, 32  # the kernel's output rows per tile and K chunk
 

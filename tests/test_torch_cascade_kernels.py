@@ -24,6 +24,7 @@ from vn_celeb_face_recognition_tpu_torch.ops import crops_net as K5
 from vn_celeb_face_recognition_tpu_torch.ops import nms as K3
 from vn_celeb_face_recognition_tpu_torch.utils import kernels
 from vn_celeb_face_recognition_tpu_torch.utils.frames import build_frames
+from torch_shared import two_threads  # noqa: F401 (autouse)
 
 
 def _t(a):

@@ -60,6 +60,7 @@ from vn_celeb_face_recognition_tpu_torch.utils import kernels
 from test_torch_emotion import emotion_pair
 from test_torch_encoder import load_pair
 from toy_data import toy_face_files
+from torch_shared import jax_runtime  # noqa: F401 (autouse)
 
 REPO_ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 N_CLASSES, TAGS = 16, 17

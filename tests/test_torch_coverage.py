@@ -12,6 +12,7 @@ import importlib
 import os
 
 import pytest
+from torch_shared import two_threads  # noqa: F401 (autouse)
 
 REPO_ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 JAX_PKG = "vn_celeb_face_recognition_tpu"

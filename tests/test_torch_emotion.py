@@ -48,6 +48,7 @@ from vn_celeb_face_recognition_tpu_torch.ops.image import (
 from vn_celeb_face_recognition_tpu_torch.utils import kernels
 
 from test_torch_encoder import load_pair
+from torch_shared import two_threads  # noqa: F401 (autouse)
 
 
 def emotion_pair(seed=7, num_classes=17, layers=(3, 4, 6, 3)):

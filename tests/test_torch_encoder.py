@@ -26,6 +26,7 @@ from vn_celeb_face_recognition_tpu_torch.models.inception_resnet_v1 import (
     InceptionResnetV1 as TEnc,
 )
 from vn_celeb_face_recognition_tpu_torch.models.mlp import MLPModel as TMLP
+from torch_shared import two_threads  # noqa: F401 (autouse)
 
 
 def random_state_dict(module, seed):

@@ -48,6 +48,8 @@ from vn_celeb_face_recognition_tpu_torch.utils import kernels
 from vn_celeb_face_recognition_tpu_torch.utils.frames import build_frames
 
 from test_torch_encoder import load_pair
+from torch_shared import once_a_run
+from torch_shared import two_threads  # noqa: F401 (autouse)
 
 DET = dict(min_face_size=50, pnet_cap_per_scale=128,
            cross_cap=256, rnet_cap=64, onet_cap=32, out_cap=8)
@@ -97,12 +99,15 @@ def jax_composition(frames, jdet, enc_vars, clf_vars, face_cap, fs=112,
 
 
 @pytest.fixture(scope="module")
-def setup():
+def setup(tmp_path_factory):
     frames = build_frames(2, 256, 4, face_px=100)
     enc, enc_vars = load_pair(TEnc(), seed=10)
     clf, clf_vars = load_pair(TMLP(512, N_CLASSES), seed=11)
     jdet = JM.MTCNN(fused_pyramid_pnet=True, **DET)
-    ref = jax_composition(frames, jdet, enc_vars, clf_vars, FACE_CAP)
+    # the JAX composition (numpy out) once a run, whichever workers run the
+    # module's tests
+    ref = once_a_run(tmp_path_factory, "engine_jax_composition", lambda: (
+        jax_composition(frames, jdet, enc_vars, clf_vars, FACE_CAP)))
 
     def engine(face_cap=FACE_CAP, **kw):
         return TEngine(TM.MTCNN(device="cpu", **DET), enc, clf, target_fs=112,

@@ -15,6 +15,7 @@ from vn_celeb_face_recognition_tpu_torch.models import mtcnn as TM
 from vn_celeb_face_recognition_tpu_torch.models import retinaface as TR
 from vn_celeb_face_recognition_tpu_torch.ops import crop as K4
 from vn_celeb_face_recognition_tpu_torch.ops import nms as K3
+from torch_shared import two_threads  # noqa: F401 (autouse)
 
 # more pixels than the int32 sums of 255-valued pixels held exactly before
 # the sums wrapped: 3000 x 3000 > 8,421,504, and 9 M x 250 > 2**31

@@ -10,8 +10,10 @@ import copy
 import csv
 import functools
 import json
+import logging
 import os
 import pickle
+import sys
 
 import numpy as np
 import pytest
@@ -76,6 +78,7 @@ from vn_celeb_face_recognition_tpu_torch.training.trainer import (
 )
 from vn_celeb_face_recognition_tpu_torch.utils import kernels
 from vn_celeb_face_recognition_tpu_torch.utils.frames import write_png
+from torch_shared import two_threads  # noqa: F401 (autouse)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -723,6 +726,22 @@ def test_make_aug_train_step(tmp_path):
 # ---------------------------------------------------------------------------
 
 
+def absl_handlers_write_to_capsys(monkeypatch):
+    """absl's logging handler, put on the root logger when absl is
+    imported, closes its stream when ``logging.config.dictConfig`` (the
+    trainer's ``setup_logging``) shuts it down, unless that stream is the
+    current ``sys.stdout`` or ``sys.stderr``. Under ``capsys`` its stream
+    is pytest's own capture file, which the process then loses. A test
+    whose process has not yet run a trainer (the first of its module on
+    an xdist worker under ``--dist load``, or alone) points it at capsys's
+    stderr."""
+    for ref in list(logging._handlerList):
+        h = ref()
+        if (h is not None and type(h).__module__.startswith("absl")
+                and hasattr(h, "stream")):
+            monkeypatch.setattr(h, "stream", sys.stderr)
+
+
 def test_cli_train_and_eval_image_classify(color_images, tmp_path,
                                            monkeypatch, capsys):
     """cli.train -d CPU on cfg/train_cfg_img_classify.json with its
@@ -734,6 +753,7 @@ def test_cli_train_and_eval_image_classify(color_images, tmp_path,
     one writes result.csv with one row per validation image; without -d
     CPU on a machine without a card both raise."""
     monkeypatch.setenv("TORCH_HOME", str(tmp_path / "torch_home"))
+    absl_handlers_write_to_capsys(monkeypatch)
     with open(os.path.join(REPO, "cfg", "train_cfg_img_classify.json")) as fp:
         cfg = json.load(fp)
     root = color_images

@@ -19,6 +19,7 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from vn_celeb_face_recognition_tpu_torch.ops import crop as K4
+from torch_shared import two_threads  # noqa: F401 (autouse)
 
 THREADS, PIX, WARP = 256, 4, 32
 PASS = THREADS * PIX

@@ -27,6 +27,7 @@ from vn_celeb_face_recognition_tpu_torch.models.convert import (
 )
 
 from test_torch_encoder import load_pair
+from torch_shared import two_threads  # noqa: F401 (autouse)
 
 SHALLOW = (1, 1, 1, 1)
 

@@ -24,6 +24,7 @@ from vn_celeb_face_recognition_tpu_torch.ops.pyramid_pnet import (
     pyramid_pnet as t_pyramid_pnet,
 )
 from vn_celeb_face_recognition_tpu_torch.utils.frames import build_frames
+from torch_shared import two_threads  # noqa: F401 (autouse)
 
 CAPS = dict(pnet_cap_per_scale=128, cross_cap=256,
             rnet_cap=64, onet_cap=32, out_cap=8)

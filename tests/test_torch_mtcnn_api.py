@@ -13,6 +13,7 @@ from PIL import Image
 from vn_celeb_face_recognition_tpu.models import mtcnn as JM
 from vn_celeb_face_recognition_tpu_torch.models import mtcnn as TM
 from vn_celeb_face_recognition_tpu_torch.utils import frames as F
+from torch_shared import two_threads  # noqa: F401 (autouse)
 
 CAPS = dict(min_face_size=50, pnet_cap_per_scale=128, cross_cap=256,
             rnet_cap=64, onet_cap=32, out_cap=8)

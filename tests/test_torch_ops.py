@@ -33,6 +33,7 @@ from vn_celeb_face_recognition_tpu_torch.utils import kernels
 
 from test_warp_fast import smooth_image
 from test_warp_pallas import _mat
+from torch_shared import two_threads  # noqa: F401 (autouse)
 
 
 def _t(a):

@@ -15,6 +15,7 @@ torch = pytest.importorskip("torch")
 from vn_celeb_face_recognition_tpu_torch.utils import frames as F
 from vn_celeb_face_recognition_tpu_torch.utils import kernels
 from vn_celeb_face_recognition_tpu_torch.utils.device import select_device
+from torch_shared import two_threads  # noqa: F401 (autouse)
 
 REPO_ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PKG = "vn_celeb_face_recognition_tpu_torch"

@@ -29,6 +29,7 @@ import jax.numpy as jnp
 
 import train as j_train
 import torch_parallel_workers as W
+from torch_shared import once_a_run
 from vn_celeb_face_recognition_tpu import data as JD
 from vn_celeb_face_recognition_tpu.models.mlp import MLPModel as JMLP
 from vn_celeb_face_recognition_tpu.parallel import data_sharding as j_sharding
@@ -309,12 +310,19 @@ def aug_config(root, save_dir, transform, n_devices):
 
 @pytest.fixture(scope="module")
 def runs(inputs, toy_embedding_dataset, face_root, tmp_path_factory):
-    """Everything the tests compare, computed once. The port's mesh runs
-    are two launches started first, in threads: (2, 1), (1, 2) and the
-    trainers at n_devices 2 and at a (1, 2) mesh in one launch of 2, (2, 2)
-    in one of 4. Meanwhile JAX's mesh steps and trainers at n_devices 2
-    (its mesh of 2 virtual devices) and the port's one-process runs go
-    here, all from the same weights."""
+    """Everything the tests compare, computed once a run
+    (``torch_shared.once_a_run``: numpy and plain Python; the checkpoints
+    stay under the computing worker's temporary directory)."""
+    return once_a_run(tmp_path_factory, "parallel_runs", lambda: compute_runs(
+        inputs, toy_embedding_dataset, face_root, tmp_path_factory))
+
+
+def compute_runs(inputs, toy_embedding_dataset, face_root, tmp_path_factory):
+    """The port's mesh runs are two launches started first, in threads:
+    (2, 1), (1, 2) and the trainers at n_devices 2 and at a (1, 2) mesh in
+    one launch of 2, (2, 2) in one of 4. Meanwhile JAX's mesh steps and
+    trainers at n_devices 2 (its mesh of 2 virtual devices) and the port's
+    one-process runs go here, all from the same weights."""
     batch, variables, bn, tp_x = inputs
     tmp = tmp_path_factory.mktemp("trainers")
     jt, _, _ = j_train.build_trainer_from_config(

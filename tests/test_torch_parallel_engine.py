@@ -33,6 +33,7 @@ import jax
 import jax.numpy as jnp
 
 import torch_parallel_workers as W
+from torch_shared import once_a_run
 from vn_celeb_face_recognition_tpu.models import mtcnn as JM
 from vn_celeb_face_recognition_tpu.models.mlp import MLPModel as JMLP
 from vn_celeb_face_recognition_tpu.ops.image import (
@@ -133,7 +134,13 @@ def jax_composition(frames, det, enc_vars, clf_vars, face_cap, fs=112,
 
 
 @pytest.fixture(scope="module")
-def runs():
+def runs(tmp_path_factory):
+    """Everything the tests compare, computed once a run
+    (``torch_shared.once_a_run``: numpy and plain Python)."""
+    return once_a_run(tmp_path_factory, "parallel_engine_runs", compute_runs)
+
+
+def compute_runs():
     """One launch of 2 (the sharded engine's chunks, the adaptive retry,
     the Encoder apply), started first in a thread; meanwhile the JAX mesh
     engine, the JAX composition and the port's one-process runs go here."""

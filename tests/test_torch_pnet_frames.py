@@ -35,6 +35,7 @@ from vn_celeb_face_recognition_tpu_torch.ops import crop as K4
 from vn_celeb_face_recognition_tpu_torch.ops import pyramid_pnet as K2
 from vn_celeb_face_recognition_tpu_torch.ops.image import pyramid_planes
 from vn_celeb_face_recognition_tpu_torch.utils.frames import build_frames
+from torch_shared import two_threads  # noqa: F401 (autouse)
 
 BF16_REL_L2, BF16_REL_MAX = 1e-2, 5e-2  # chip_smoke.py check_bf16
 T, IN, POOL, C2 = 16, 42, 20, 18        # tile, input, pool, conv2 sides

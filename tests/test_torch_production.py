@@ -36,6 +36,7 @@ from vn_celeb_face_recognition_tpu_torch.utils.frames import build_frames
 
 from test_torch_emotion import emotion_pair
 from test_torch_encoder import load_pair
+from torch_shared import two_threads  # noqa: F401 (autouse)
 
 SHALLOW = (1, 1, 1, 1)
 N_CLASSES, TAGS, TOPK = 40, 17, 6

@@ -23,6 +23,7 @@ from vn_celeb_face_recognition_tpu.ops import augment as JA
 from vn_celeb_face_recognition_tpu_torch.data import transforms as PT
 from vn_celeb_face_recognition_tpu_torch.ops import augment as PA
 from vn_celeb_face_recognition_tpu_torch.utils import kernels
+from torch_shared import two_threads  # noqa: F401 (autouse)
 
 NAMES = [name for name, _, _ in PA.RANK1_OPS]
 

@@ -14,7 +14,9 @@ such test."""
 
 import json
 import os
+import subprocess
 import sys
+import time
 
 import numpy as np
 import pytest
@@ -31,7 +33,13 @@ from vn_celeb_face_recognition_tpu_torch.cli import find_embedding as t_emb
 from vn_celeb_face_recognition_tpu_torch.native import loader
 from vn_celeb_face_recognition_tpu_torch.utils import frames as F
 
-from test_torch_cli import _common_argv, files, read_tracker  # noqa: F401
+from test_torch_cli import (  # noqa: F401
+    REPO_ROOT,
+    _common_argv,
+    files,
+    read_tracker,
+)
+from torch_shared import jax_runtime, two_threads  # noqa: F401 (autouse)
 
 FPS, N_VIDEO = 25.0, 20
 CONTAINERS = {"avi": "MJPG", "mp4": "mp4v"}
@@ -236,6 +244,50 @@ def test_available_tries_the_build_once_and_keeps_the_reason(no_runtime):
     assert loader.unavailable_reason("video_io") == (
         "IO runtime video_io: header libavcodec/avcodec.h not found")
     assert loader.unavailable_reason("image_io") is None
+
+
+_BUILD_AT_ONCE = """
+import ctypes, os, sys, time
+from vn_celeb_face_recognition_tpu_torch.native import loader
+loader.BUILD_DIR, ready, go = sys.argv[1:4]
+open(ready, "w").close()
+while not os.path.exists(go):
+    time.sleep(0.01)
+path = loader.build("image_io")
+ctypes.CDLL(path).vn_decode_jpeg
+print(path)
+"""
+
+
+def test_two_processes_build_the_runtime_at_once(tmp_path):
+    """Two processes that start the IO runtime's build at once in an empty
+    build directory (several test workers or CLIs on a fresh checkout)
+    both return a library that loads with its functions, at one path,
+    beside the source's hash stamp: each compiles to a name of its own and
+    renames the library, then the stamp, into place."""
+    if loader.shutil.which("g++") is None:
+        pytest.skip("no g++ on this machine")
+    build = tmp_path / "build"
+    go = tmp_path / "go"
+    procs = []
+    for i in range(2):
+        procs.append(subprocess.Popen(
+            [sys.executable, "-c", _BUILD_AT_ONCE, str(build),
+             str(tmp_path / f"ready{i}"), str(go)], cwd=REPO_ROOT,
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
+    deadline = time.monotonic() + 120
+    while not all((tmp_path / f"ready{i}").exists() for i in range(2)):
+        assert time.monotonic() < deadline, "the processes did not start"
+        time.sleep(0.05)
+    go.touch()
+    outs = [p.communicate(timeout=120) for p in procs]
+    assert [p.returncode for p in procs] == [0, 0], outs
+    lib = str(build / "libvn_image_io.so")
+    assert [o.strip() for o, _ in outs] == [lib, lib]
+    source, link, _, _ = loader.LIBRARIES["image_io"]
+    assert (build / "libvn_image_io.so.sha256").read_text() == \
+        loader._digest(source, link)
+    assert not list(build.glob("*.tmp"))
 
 
 @pytest.mark.parametrize("missing", ["header", "library"])

@@ -50,6 +50,7 @@ from vn_celeb_face_recognition_tpu_torch.utils.frames import build_frames
 
 from test_torch_emotion import emotion_pair
 from test_torch_encoder import load_pair
+from torch_shared import two_threads  # noqa: F401 (autouse)
 
 REPO_ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 META = os.path.join(REPO_ROOT, "meta_data", "face_recognition")

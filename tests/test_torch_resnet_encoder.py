@@ -38,6 +38,7 @@ from vn_celeb_face_recognition_tpu_torch.training.trainer import (
 
 from test_torch_encoder import load_pair
 from test_torch_training import aug_config, face_dataset, loaders  # noqa: F401
+from torch_shared import two_threads  # noqa: F401 (autouse)
 
 SHALLOW = (1, 1, 1, 1)
 

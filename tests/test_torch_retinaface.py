@@ -28,6 +28,7 @@ from vn_celeb_face_recognition_tpu_torch.utils import kernels
 from vn_celeb_face_recognition_tpu_torch.utils.frames import build_frames
 
 from test_torch_encoder import load_pair
+from torch_shared import two_threads  # noqa: F401 (autouse)
 
 SUB = (104.0, 117.0, 123.0)
 

@@ -44,6 +44,7 @@ from vn_celeb_face_recognition_tpu_torch.utils.frames import build_frames
 
 from chip_smoke import shrink_re50_offsets
 from test_torch_cli import cli_args, files  # noqa: F401
+from torch_shared import two_threads  # noqa: F401 (autouse)
 
 SUB = np.array(TR.CHANNELS_SUBTRACT, np.float32)
 

@@ -48,6 +48,7 @@ from vn_celeb_face_recognition_tpu_torch.ops import planar_s1 as K6
 from vn_celeb_face_recognition_tpu_torch.utils.frames import build_frames
 
 from test_torch_emotion import SHALLOW, emotion_pair
+from torch_shared import two_threads  # noqa: F401 (autouse)
 
 SUB = TR.CHANNELS_SUBTRACT
 BF = torch.bfloat16
@@ -194,7 +195,8 @@ def stem():
 def test_k7_mma_pack_layout(stem):
     """B is the fold's [48, 64] transposed to [64, 48] (n-major, k =
     (dy*4 + dx)*3 + c contiguous) and rounded to bf16; the bf16 wrapper's
-    buffer is the f32 fold followed by B's bits."""
+    buffer is the f32 fold followed by B's bits, the f32 wrapper's the
+    fold followed by B split into TF32 halves."""
     conv1, bn1, _ = stem
     fold = K7.fold_stem_weights(conv1, bn1)
     b = K7.pack_stem_mma_weights(conv1, bn1)
@@ -212,7 +214,10 @@ def test_k7_mma_pack_layout(stem):
     buf = K7._kernel_weights(conv1, bn1, BF)
     assert torch.equal(buf[:48 * 64 + 64], fold)
     assert torch.equal(buf[48 * 64 + 64:].view(BF), b.reshape(-1))
-    assert torch.equal(K7._kernel_weights(conv1, bn1, torch.float32), fold)
+    buf = K7._kernel_weights(conv1, bn1, torch.float32)
+    assert torch.equal(buf[:48 * 64 + 64], fold)
+    assert torch.equal(buf[48 * 64 + 64:],
+                       K7.pack_stem_tf32x3_weights(conv1, bn1).reshape(-1))
 
 
 @pytest.mark.parametrize("tile", [(0, 0), (3, 6), (6, 6)])

@@ -71,6 +71,7 @@ from vn_celeb_face_recognition_tpu_torch.utils.frames import (
 from test_facenet_aug_batch import smooth_batch
 from test_torch_encoder import load_pair
 from test_train_slice import make_config
+from torch_shared import two_threads  # noqa: F401 (autouse)
 
 # a plateau schedule that halves the rate at every epoch after the first
 # (a 50% drop is never reached), so the compared runs change their rate

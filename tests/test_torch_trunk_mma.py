@@ -21,6 +21,7 @@ torch = pytest.importorskip("torch")
 
 from vn_celeb_face_recognition_tpu_torch.models import mtcnn as TM
 from vn_celeb_face_recognition_tpu_torch.ops import crops_net as K5
+from torch_shared import two_threads  # noqa: F401 (autouse)
 
 BF16_REL_L2, BF16_REL_MAX = 1e-2, 5e-2  # chip_smoke.py check_bf16
 PIX = K5.MMA_C1 + 8                     # pooled pixel pitch

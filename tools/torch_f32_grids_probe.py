@@ -1,11 +1,12 @@
 #!/usr/bin/env python3
-"""The f32 grids of K8 and K5 on the H100, at the CLI paths' shapes.
+"""The f32 grids of K8, K5, K7 and K6 on the H100, at the CLI paths'
+shapes.
 
 Builds the checkout's kernels (or those of the package first on
 ``PYTHONPATH``, e.g. ``git archive`` of an earlier commit unpacked under
 ``build/``), prints what ``ptxas -v`` says of the f32 and bf16 grids of
-``bottleneck_chain.cu`` and ``crop_net_trunk.cu``, then, in f32 with TF32
-off in cuDNN and in matmul:
+``bottleneck_chain.cu``, ``crop_net_trunk.cu``, ``emotion_stem.cu`` and
+``mnet_stage1.cu``, then, in f32 with TF32 off in cuDNN and in matmul:
 
 * K8 on the emotion net's layer1 and layer2 tails (2 blocks at 56x56, C
   256, P 64; 3 at 28x28, C 512, P 128) at 64 faces, the face count of a
@@ -13,16 +14,23 @@ off in cuDNN and in matmul:
   non-negative inputs;
 * K5 on 16,384 RNet and 8,192 ONet crops, a chunk run of ``demo_video
   --fused_engine`` (CLI path a), seeded in [-1, 1);
+* K7 on 64 faces of uniform 0-255 pixels (CLI path b's faces);
+* K6 with the vendored fitted RetinaFace stage 1 on 16 and 8 seeded
+  640x640 frames (a CLI path b chunk; the detector fit's evaluations),
+  and on 2 ragged 97x131 frames;
 
-each held to its plain version within 1e-4 of max|ref| and timed: the
+each held to its plain version within 1e-4 of max|ref| (K6: rtol and
+atol 1e-4) and timed: the
 kernel's device time (torch.profiler, mean of 20 calls), the wrapper call
 (CUDA events, median of 20), the plain version's device time (cuDNN),
 beside the 3xTF32 floor (bytes at 3.35 TB/s, 3 x operations at the 495
-TFLOP/s TF32 peak) and the bound at the 67 TFLOP/s f32 peak. Prints one
-``[f32-grids]`` line a kernel and one JSON line.
+TFLOP/s TF32 peak; K6's bytes those of its three launches, the f32
+scratch included) and the bound at the 67 TFLOP/s f32 peak. Prints one
+``[f32-grids]`` line a kernel and one JSON line. ``--only K7,K6`` runs
+those kernels alone.
 
 Usage, from the root of a checkout, on a machine with the card:
-    python3 tools/torch_f32_grids_probe.py [--label NAME]
+    python3 tools/torch_f32_grids_probe.py [--label NAME] [--only K7,K6]
     PYTHONPATH=build/parent python3 tools/torch_f32_grids_probe.py \\
         --label parent
 """
@@ -38,13 +46,14 @@ sys.path.append(os.path.dirname(HERE))  # chip_smoke and, last, the package
 
 CLI_B_FACES = 64                          # faces a CLI (b) chunk
 CLI_A_CROPS = {"rnet": 16384, "onet": 8192}  # crops a CLI (a) chunk run
-GRIDS = re.compile(r"(conv_gemm_\w+|crop_net_trunk_\w+|pointwise_f32|"
-                   r"conv3x3_f32)")
+CLI_B_FRAMES, FIT_FRAMES = 16, 8         # K6's frames: a CLI (b) chunk, a fit
+GRIDS = re.compile(r"(conv_gemm_\w+|crop_net_trunk_\w+|emotion_stem_\w+|"
+                   r"segment_\w+)")
 
 
 def ptxas_lines(log):
-    """The build log's register/spill/shared-memory lines of K5's and K8's
-    grids, one line a function."""
+    """The build log's register/spill/shared-memory lines of the grids of
+    K5, K8, K7 and K6, one line a function."""
     out, fn = [], None
     for line in log.splitlines():
         if "Compiling entry function" in line:
@@ -58,7 +67,9 @@ def ptxas_lines(log):
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--label", default="checkout")
+    ap.add_argument("--only", default="K8,K5,K7,K6")
     args = ap.parse_args()
+    only = set(args.only.split(","))
 
     import torch
 
@@ -68,8 +79,16 @@ def main():
         seeded_init_,
     )
     from vn_celeb_face_recognition_tpu_torch.models.mtcnn import MTCNN
+    from vn_celeb_face_recognition_tpu_torch.models.retinaface import (
+        CHANNELS_SUBTRACT,
+        WEIGHTS_NPZ,
+        RetinaFaceNet,
+    )
+    from vn_celeb_face_recognition_tpu_torch.models.layers import load_npz
     from vn_celeb_face_recognition_tpu_torch.ops import bottleneck as K8
     from vn_celeb_face_recognition_tpu_torch.ops import crops_net as K5
+    from vn_celeb_face_recognition_tpu_torch.ops import emotion_stem as K7
+    from vn_celeb_face_recognition_tpu_torch.ops import planar_s1 as K6
     from vn_celeb_face_recognition_tpu_torch.utils import kernels
 
     if not torch.cuda.is_available():
@@ -92,10 +111,11 @@ def main():
     dev = torch.device("cuda")
     rows = {}
 
-    def run(name, fn, plain, flops, nbytes):
+    def run(name, fn, plain, flops, nbytes, atol=None):
         got, want = fn(), plain()
+        scale = float(want.abs().max())
         err = CS.check_close(torch, got, want, 1e-4,
-                             1e-4 * float(want.abs().max()),
+                             1e-4 * scale if atol is None else atol,
                              f"{args.label} {name}")
         ms = CS.device_ms(torch, fn)
         call = CS.median_ms(torch, fn)
@@ -106,17 +126,55 @@ def main():
                           max_abs_err=err, floor_3xtf32_ms=floor,
                           floor_by=floor_by, f32_peak_ms=f32)
         print(f"[f32-grids] {args.label} {name}: max abs err {err:.3e} "
-              f"(max|ref| {float(want.abs().max()):.3e}); kernel {ms:.3f} "
-              f"ms device, {flops / ms / 1e9:.1f} TFLOP/s, call {call:.3f} "
-              f"ms; plain {plain_ms:.3f} ms; 3xtf32 floor {floor:.3f} ms "
-              f"({floor_by}), f32-peak bound {f32:.3f} ms; {card}",
+              f"(max|ref| {scale:.3e}); kernel {ms:.4f} "
+              f"ms device, {flops / ms / 1e9:.1f} TFLOP/s, "
+              f"{nbytes / ms / 1e6:.0f} GB/s, call {call:.4f} "
+              f"ms; plain {plain_ms:.4f} ms; 3xtf32 floor {floor:.4f} ms "
+              f"({floor_by}), f32-peak bound {f32:.4f} ms; {card}",
               flush=True)
 
     g = torch.Generator().manual_seed(5)
     emo = seeded_init_(resnet_2branch_50(num_classes=690), g).to(dev).eval()
     gen = torch.Generator(device=dev).manual_seed(6)
+    if "K7" in only:
+        faces = torch.rand((CLI_B_FACES, 112, 112, 3), generator=gen,
+                           device=dev) * 255
+        run(f"K7 K={CLI_B_FACES}",
+            lambda: K7.emotion_stem(emo.conv1, emo.bn1, faces,
+                                    torch.float32),
+            lambda: K7.emotion_stem_plain(emo.conv1, emo.bn1, faces,
+                                          torch.float32),
+            CLI_B_FACES * 112 * 112 * 64 * 48 * 2,
+            (faces.numel() + CLI_B_FACES * 56 * 56 * 64) * 4)
+        del faces
+    if "K6" in only:
+        stage1 = load_npz(RetinaFaceNet(), WEIGHTS_NPZ).to(dev).eval()
+        stage1 = stage1.body.stage1
+        for b, h, w in ((CLI_B_FRAMES, 640, 640), (FIT_FRAMES, 640, 640),
+                        (2, 97, 131)):
+            frames = torch.randint(0, 256, (b, h, w, 3), generator=gen,
+                                   device=dev, dtype=torch.uint8)
+            work = CS.mnet_segment_work(b, h, w, itemsize=4)
+            run(f"K6 {b}x{h}x{w}",
+                lambda: K6.mnet_stage1(stage1, frames, CHANNELS_SUBTRACT,
+                                       torch.float32),
+                lambda: K6.mnet_stage1_plain(stage1, frames,
+                                             CHANNELS_SUBTRACT,
+                                             torch.float32),
+                b * CS.mnet_stage1_flops(h, w),
+                sum(n for n, _ in work.values()), atol=1e-4)
+            rows[f"K6 {b}x{h}x{w}"]["segment_ms"] = CS.device_ms_by(
+                torch, lambda: K6.mnet_stage1(stage1, frames,
+                                              CHANNELS_SUBTRACT,
+                                              torch.float32),
+                CS.segment_role)
+            print(f"[f32-grids] {args.label} K6 {b}x{h}x{w} by segment: "
+                  f"{rows[f'K6 {b}x{h}x{w}']['segment_ms']}", flush=True)
+            del frames
     for name, layer, side, c, p in (("l1", emo.layer1, 56, 256, 64),
                                     ("l2", emo.layer2, 28, 512, 128)):
+        if "K8" not in only:
+            break
         blocks = list(layer)[1:]
         x = torch.relu(torch.randn((CLI_B_FACES, side, side, c),
                                    generator=gen, device=dev))
@@ -127,8 +185,9 @@ def main():
             lambda: K8.bottleneck_chain(blocks, x),
             lambda: K8.bottleneck_chain_plain(blocks, x), flops, nbytes)
         del x
-    det = MTCNN(device=dev)
-    for net, spec in ((det.rnet, K5.RNET_SPEC), (det.onet, K5.ONET_SPEC)):
+    det = MTCNN(device=dev) if "K5" in only else None
+    for net, spec in ((det.rnet, K5.RNET_SPEC), (det.onet, K5.ONET_SPEC)
+                      ) if det else ():
         n = CLI_A_CROPS[spec.name]
         x = torch.rand((n, spec.size, spec.size, 3), generator=gen,
                        device=dev) * 2 - 1

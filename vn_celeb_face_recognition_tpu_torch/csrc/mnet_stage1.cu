@@ -80,16 +80,54 @@
 //       segment 1: 51,424 B, 4 (64 registers), conv0 on 18x18 cells 1.27x
 //       segment 2: 81,760 B, 2 (128 registers), 10x18 cells 1.41x
 //       segment 3: 106,944 B, 2 (128 registers), 10x10 cells 1.56x
-// What the f32 CUDA-core grid pays, and the bf16 grids no longer do: a
-// weight __ldg per FMA in conv0 and a float4 __ldg + a shared load per 4
-// FMAs in the pointwise loops; shared reads at stride C_in across a warp
-// (2-4-way bank conflicts); a / and % by 37, 21, 18 or 10 per staged
-// element; one byte or bf16 per thread when staging; f32 staging (94.8 KB
-// for segment 3's 8x8 tile, 2 blocks an SM).
 //
-// f32 output (the shipped configs' dtype, and the card-vs-CPU check):
-// segment_kernel, the same tiles of 16x16 and 8x8 on the CUDA cores in
-// f32, weights read by __ldg.
+// f32 output (the shipped configs' dtype: CLI path b, every RetinaFace
+// library call, demo_image and each cli.fit_detector evaluation launch it;
+// and the card-vs-CPU check): segment_tf32_first and segment_tf32, the
+// bf16 grids' segments and tiles with every GEMM in 3xTF32 (mma.sync
+// m16n8k8, csrc/mma.cuh) and every tensor f32.
+//   - Bound at the fit's 8 x 640 x 640: 2.2 GFLOP (0.033 ms at the f32
+//     peak; 83% of it conv0 and the pointwise convs, 0.011 ms as three TF32
+//     products at 495 TFLOP/s). The function moves 9.8 MB of frames in and
+//     13.1 MB of f32 features out (0.007 ms at 3.35 TB/s); this three-launch
+//     design also writes and reads back scratch1 (52.4 MB) and scratch2
+//     (26.2 MB), 180 MB in all: 0.054 ms, its floor, bound by bytes.
+//   - What held the old design back (PR 2's grid on the CUDA cores,
+//     0.315-0.326 ms at the fit's shape): a weight __ldg per FMA in conv0
+//     and a float4 __ldg + a shared load per 4 FMAs in the pointwise loops;
+//     shared reads at stride C_in across a warp; a / and % per staged
+//     element; 94.8 KB of f32 staging for segment 3's tile.
+//   - conv0: A is frame minus the channel means, integers below 256 and so
+//     exact in TF32: only B is split (on the host), two products a k8 step
+//     (lo, then hi), its fragments held in registers. The wrapper raises on
+//     means that are not integers in [0, 255].
+//   - Pointwise convs: A tiles f32 in shared memory (pitch C + 4 floats, so
+//     an ldmatrix's eight rows fall in distinct bank groups), split into
+//     tf32 hi and lo as they are loaded; B split on the host
+//     (ops/planar_s1.pack_stage1_tf32x3_weights) and staged by cp.async;
+//     three products a k8 step (lo.hi, hi.lo, hi.hi).
+//   - Sums: each k8 step's products are summed from zero on the tensor
+//     cores, whose f32 sums round toward zero, and added on the CUDA cores
+//     (mma_tf32x3_add; conv0 likewise with its two); then BN's mul/add. In
+//     the CPU emulation (tests/test_torch_tf32x3.py) a GEMM's whole K (8-64)
+//     in one partial erred up to 6x more against f64 (pw5: 3.7e-6 against
+//     5.9e-7, max|ref| 5.1; plain f32 1.2e-6).
+//   - Depthwise 3x3s on the CUDA cores in f32, two channels a thread, as in
+//     the bf16 grids. scratch1, scratch2 and the output stay f32.
+//   - Shared memory, blocks an SM (register cap in brackets):
+//       segment 1: 49,472 B, 4 (64 registers)
+//       segment 2: 109,888 B, 2 (128 registers)
+//       segment 3: 158,144 B, 1 (255 registers): its f32 input footprint
+//         (56,448 B) and split B operands (53,248 B) leave no room for two.
+//     -Xptxas -v (sm_90a): segment 1 61 registers, segment 2 127,
+//     segment 3 239; no spills.
+//   - Measured (NVIDIA H100 80GB HBM3, 700 W; chip_smoke.py's K6-f32,
+//     fit-k6 and cli-k6-f32 lines, tools/torch_f32_grids_probe.py):
+//     0.222-0.226 ms of device time at 8 x 640 x 640 (segments 0.073-0.076,
+//     0.081-0.084, 0.066-0.067 ms; 24% of the three-launch floor) and
+//     0.399-0.410 ms at CLI b's 16 frames, against 0.453-0.463 and
+//     0.817-0.820 ms for the CUDA-core grid in the same call (2.0x); the
+//     plain version on cuDNN (TF32 off) 1.2 and 2.0 ms.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -121,231 +159,6 @@ struct SegWeights {
   static constexpr int kB = 9 * CMID + 2 * CMID + CMID * COUT + 2 * COUT;
   static constexpr int kTotal = kA + kB;
 };
-
-template <int CIN, int TH, int TW, int CMID, int COUT, bool FIRST>
-struct SegSmem {
-  static constexpr int kIR = 2 * TH + 5, kIC = 2 * TW + 5;
-  static constexpr int kAR = TH + 2, kAC = TW + 2;
-  static constexpr int kIn = kIR * kIC * CIN;
-  static constexpr int kD = FIRST ? 0 : kAR * kAC * CIN;
-  static constexpr int kA = kAR * kAC * CMID;
-  static constexpr int kE = TH * TW * CMID;
-  // the stride-1 depthwise output reuses the input buffer
-  static constexpr int kBuf0 = kIn > kE ? kIn : kE;
-  static constexpr int kFloats = kBuf0 + kD + kA;
-  static constexpr size_t kBytes = sizeof(float) * kFloats;
-};
-
-// One segment: a stride-2 block (conv0 when FIRST, else depthwise 3x3/2
-// + pointwise) then a stride-1 depthwise-separable block. in: [B, Hi, Wi,
-// CIN] NHWC; out: [B, Ho, Wo, COUT] NHWC with Ho = (Hi + 1) / 2.
-template <int CIN, int CMID, int COUT, int TH, int TW, bool FIRST,
-          typename InT>
-__global__ void __launch_bounds__(kThreads)
-segment_kernel(const InT* __restrict__ in, const float* __restrict__ w,
-               const float* __restrict__ sub, float* __restrict__ out,
-               int hi, int wi, int ho, int wo, int tiles_x) {
-  using S = SegSmem<CIN, TH, TW, CMID, COUT, FIRST>;
-  extern __shared__ float smem[];
-  float* inb = smem;            // [IR][IC][CIN], later ebuf [TH][TW][CMID]
-  float* dbuf = smem + S::kBuf0;  // [AR][AC][CIN] (not FIRST)
-  float* abuf = dbuf + S::kD;     // [AR][AC][CMID]
-  float* ebuf = smem;
-
-  const int tid = threadIdx.x;
-  const int b = blockIdx.y;
-  const int ty0 = (blockIdx.x / tiles_x) * TH;
-  const int tx0 = (blockIdx.x % tiles_x) * TW;
-  const int ay0 = ty0 - 1, ax0 = tx0 - 1;          // stage-A origin
-  const int iy0 = 2 * ay0 - 1, ix0 = 2 * ax0 - 1;  // input origin
-
-  // ---- stage the input footprint (zero outside the frame) -------------
-  const InT* img = in + (size_t)b * hi * wi * CIN;
-  for (int i = tid; i < S::kIn; i += kThreads) {
-    const int c = i % CIN;
-    const int p = i / CIN;
-    const int gy = iy0 + p / S::kIC, gx = ix0 + p % S::kIC;
-    float v = 0.f;
-    if (gy >= 0 && gy < hi && gx >= 0 && gx < wi) {
-      v = (float)img[((size_t)gy * wi + gx) * CIN + c];
-      if constexpr (FIRST) v -= sub[c];
-    }
-    inb[i] = v;
-  }
-  __syncthreads();
-
-  // ---- stage A: the stride-2 block on the tile plus a 1-cell halo -------
-  const float* wb;  // stride-1 block weights
-  if constexpr (FIRST) {
-    const float* w0 = w;                 // [27][CMID]
-    const float* m0 = w0 + 27 * CMID;    // [CMID]
-    const float* a0 = m0 + CMID;
-    wb = a0 + CMID;
-    for (int i = tid; i < S::kAR * S::kAC * CMID; i += kThreads) {
-      const int o = i % CMID;
-      const int p = i / CMID;
-      const int r = p / S::kAC, q = p % S::kAC;
-      const int gy = ay0 + r, gx = ax0 + q;
-      float v = 0.f;
-      if (gy >= 0 && gy < ho && gx >= 0 && gx < wo) {
-        float acc = 0.f;
-#pragma unroll
-        for (int dy = 0; dy < 3; ++dy)
-#pragma unroll
-          for (int dx = 0; dx < 3; ++dx)
-#pragma unroll
-            for (int c = 0; c < CIN; ++c)
-              acc += inb[((2 * r + dy) * S::kIC + 2 * q + dx) * CIN + c] *
-                     __ldg(w0 + ((dy * 3 + dx) * CIN + c) * CMID + o);
-        v = leaky(acc * __ldg(m0 + o) + __ldg(a0 + o));
-      }
-      abuf[i] = v;
-    }
-  } else {
-    const float* dw = w;                 // [9][CIN]
-    const float* m1 = dw + 9 * CIN;      // [CIN]
-    const float* a1 = m1 + CIN;
-    const float* pw = a1 + CIN;          // [CIN][CMID]
-    const float* m2 = pw + CIN * CMID;   // [CMID]
-    const float* a2 = m2 + CMID;
-    wb = a2 + CMID;
-    for (int i = tid; i < S::kAR * S::kAC * CIN; i += kThreads) {
-      const int c = i % CIN;
-      const int p = i / CIN;
-      const int r = p / S::kAC, q = p % S::kAC;
-      float acc = 0.f;
-#pragma unroll
-      for (int dy = 0; dy < 3; ++dy)
-#pragma unroll
-        for (int dx = 0; dx < 3; ++dx)
-          acc += inb[((2 * r + dy) * S::kIC + 2 * q + dx) * CIN + c] *
-                 __ldg(dw + (dy * 3 + dx) * CIN + c);
-      dbuf[i] = leaky(acc * __ldg(m1 + c) + __ldg(a1 + c));
-    }
-    __syncthreads();
-    constexpr int G = CMID / 4;
-    for (int i = tid; i < S::kAR * S::kAC * G; i += kThreads) {
-      const int og = (i % G) * 4;
-      const int p = i / G;
-      const int gy = ay0 + p / S::kAC, gx = ax0 + p % S::kAC;
-      float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
-      const float* d = dbuf + p * CIN;
-#pragma unroll 8
-      for (int c = 0; c < CIN; ++c) {
-        const float v = d[c];
-        const float4 wv = __ldg(reinterpret_cast<const float4*>(
-            pw + c * CMID + og));
-        acc.x += v * wv.x;
-        acc.y += v * wv.y;
-        acc.z += v * wv.z;
-        acc.w += v * wv.w;
-      }
-      const bool ok = gy >= 0 && gy < ho && gx >= 0 && gx < wo;
-      float* dst = abuf + p * CMID + og;
-      dst[0] = ok ? leaky(acc.x * __ldg(m2 + og) + __ldg(a2 + og)) : 0.f;
-      dst[1] = ok ? leaky(acc.y * __ldg(m2 + og + 1) + __ldg(a2 + og + 1))
-                  : 0.f;
-      dst[2] = ok ? leaky(acc.z * __ldg(m2 + og + 2) + __ldg(a2 + og + 2))
-                  : 0.f;
-      dst[3] = ok ? leaky(acc.w * __ldg(m2 + og + 3) + __ldg(a2 + og + 3))
-                  : 0.f;
-    }
-  }
-  __syncthreads();
-
-  // ---- stage B: the stride-1 block on the tile --------------------------
-  const float* dwb = wb;                 // [9][CMID]
-  const float* mb1 = dwb + 9 * CMID;
-  const float* ab1 = mb1 + CMID;
-  const float* pwb = ab1 + CMID;         // [CMID][COUT]
-  const float* mb2 = pwb + CMID * COUT;
-  const float* ab2 = mb2 + COUT;
-  for (int i = tid; i < TH * TW * CMID; i += kThreads) {
-    const int c = i % CMID;
-    const int p = i / CMID;
-    const int r = p / TW, q = p % TW;
-    float acc = 0.f;
-#pragma unroll
-    for (int dy = 0; dy < 3; ++dy)
-#pragma unroll
-      for (int dx = 0; dx < 3; ++dx)
-        acc += abuf[((r + dy) * S::kAC + q + dx) * CMID + c] *
-               __ldg(dwb + (dy * 3 + dx) * CMID + c);
-    ebuf[i] = leaky(acc * __ldg(mb1 + c) + __ldg(ab1 + c));
-  }
-  __syncthreads();
-  constexpr int GO = COUT / 4;
-  float* dst_img = out + (size_t)b * ho * wo * COUT;
-  for (int i = tid; i < TH * TW * GO; i += kThreads) {
-    const int og = (i % GO) * 4;
-    const int p = i / GO;
-    const int gy = ty0 + p / TW, gx = tx0 + p % TW;
-    if (gy >= ho || gx >= wo) continue;
-    float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
-    const float* e = ebuf + p * CMID;
-#pragma unroll 8
-    for (int c = 0; c < CMID; ++c) {
-      const float v = e[c];
-      const float4 wv =
-          __ldg(reinterpret_cast<const float4*>(pwb + c * COUT + og));
-      acc.x += v * wv.x;
-      acc.y += v * wv.y;
-      acc.z += v * wv.z;
-      acc.w += v * wv.w;
-    }
-    float* o = dst_img + ((size_t)gy * wo + gx) * COUT + og;
-    o[0] = leaky(acc.x * __ldg(mb2 + og) + __ldg(ab2 + og));
-    o[1] = leaky(acc.y * __ldg(mb2 + og + 1) + __ldg(ab2 + og + 1));
-    o[2] = leaky(acc.z * __ldg(mb2 + og + 2) + __ldg(ab2 + og + 2));
-    o[3] = leaky(acc.w * __ldg(mb2 + og + 3) + __ldg(ab2 + og + 3));
-  }
-}
-
-template <int CIN, int CMID, int COUT, int TH, int TW, bool FIRST,
-          typename InT>
-int launch_segment(const InT* in, const float* w, const float* sub,
-                   float* out, int b, int hi, int wi, cudaStream_t stream) {
-  using S = SegSmem<CIN, TH, TW, CMID, COUT, FIRST>;
-  auto kern = segment_kernel<CIN, CMID, COUT, TH, TW, FIRST, InT>;
-  cudaError_t e = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)S::kBytes);
-  if (e != cudaSuccess) return (int)e;
-  const int ho = (hi + 1) / 2, wo = (wi + 1) / 2;
-  const int tiles_x = (wo + TW - 1) / TW, tiles_y = (ho + TH - 1) / TH;
-  dim3 grid(tiles_x * tiles_y, b);
-  kern<<<grid, kThreads, S::kBytes, stream>>>(in, w, sub, out, hi, wi, ho,
-                                              wo, tiles_x);
-  return (int)cudaGetLastError();
-}
-
-int run_stage1(const uint8_t* frames, const float* weights, float* out,
-               float* s1, float* s2, int b, int h, int w, cudaStream_t st,
-               int* launches) {
-  using W1 = SegWeights<3, 8, 16, true>;
-  using W2 = SegWeights<16, 32, 32, false>;
-  using W3 = SegWeights<32, 64, 64, false>;
-  static_assert(4 + W1::kTotal + W2::kTotal + W3::kTotal == 10132,
-                "packed weight count differs from ops/planar_s1.N_WEIGHTS");
-  const float* sub = weights;
-  const float* w1 = weights + 4;
-  const float* w2 = w1 + W1::kTotal;
-  const float* w3 = w2 + W2::kTotal;
-  const int h2 = (h + 1) / 2, w2s = (w + 1) / 2;
-  const int h4 = (h2 + 1) / 2, w4s = (w2s + 1) / 2;
-  int e = launch_segment<3, 8, 16, 16, 16, true>(frames, w1, sub, s1, b, h,
-                                                 w, st);
-  if (e) return e;
-  ++*launches;
-  e = launch_segment<16, 32, 32, 8, 8, false>(s1, w2, sub, s2, b, h2, w2s,
-                                              st);
-  if (e) return e;
-  ++*launches;
-  e = launch_segment<32, 64, 64, 8, 8, false>(s2, w3, sub, out, b, h4, w4s,
-                                              st);
-  if (e) return e;
-  ++*launches;
-  return 0;
-}
 
 // ---- bf16: the tensor-core segments ---------------------------------------
 
@@ -962,15 +775,588 @@ int run_stage1_mma(const uint8_t* frames, const float* weights, bf16* out,
   return 0;
 }
 
+// ---- f32: the tensor-core segments in 3xTF32 ------------------------------
+
+// The f32 B operands (ops/planar_s1.pack_stage1_tf32x3_weights): each
+// matrix [out][in] f32 with in contiguous, as hi = tf32(w) then lo =
+// tf32(w - hi); float offsets of hi after the f32 pack. conv0 is [8][32],
+// k = (dy*3 + dx)*3 + c, zero for k >= 27; block 1's K = 8 is one k8 step.
+constexpr int kTfConv0 = 0;       // [8][32]
+constexpr int kTfPw1 = 512;       // block 1: [16][8]
+constexpr int kTfPw2 = 768;       // block 2: [32][16]
+constexpr int kTfPw3 = 1792;      // block 3: [32][32]
+constexpr int kTfPw4 = 3840;      // block 4: [64][32]
+constexpr int kTfPw5 = 7936;      // block 5: [64][64]
+
+// ROWS rows of COLS f32 (a multiple of 4) from global [ROWS][COLS] into
+// shared rows of PITCH, by 16-byte cp.async pieces; hi and lo both
+template <int ROWS, int COLS, int PITCH>
+__device__ __forceinline__ void stage_split_f32(float* dst, const float* src,
+                                                int tid) {
+  constexpr int P = COLS / 4;  // pieces a row: 2, 4, 8 or 16
+  for (int i = tid; i < 2 * ROWS * P; i += kThreads) {
+    const int row = i / P, part = i % P;  // rows ROWS.. are lo's
+    cp_async16(dst + row * PITCH + part * 4, src + row * COLS + part * 4);
+  }
+}
+
+// acc[NF][4] += A[rows of this lane's ldmatrix row arow][0:K] x
+// B[n0 .. n0 + 8 NF][0:K]^T in 3xTF32: A from f32 rows of APITCH, split as
+// it is loaded; B staged split (hi, lo at +N rows); each k8 step's three
+// products summed from zero and added to acc (mma_tf32x3_add). NF is even.
+template <int K, int NF, int APITCH, int BPITCH>
+__device__ __forceinline__ void gemm_tf32x3(float (&acc)[NF][4],
+                                            const float* a,
+                                            const float* b_hi,
+                                            const float* b_lo, int arow,
+                                            int n0, int lane) {
+  const int ao = arow * APITCH + 4 * (lane >> 4);
+  const int bo = (n0 + 8 * (lane >> 4) + (lane & 7)) * BPITCH +
+                 4 * ((lane >> 3) & 1);
+#pragma unroll
+  for (int ks = 0; ks < K; ks += 8) {
+    unsigned r[4], ah[4], al[4];
+    ldsm_x4(r, a + ao + ks);
+    split_n<4>(r, ah, al);
+#pragma unroll
+    for (int j = 0; j < NF / 2; ++j) {
+      unsigned bh[4], bl[4];
+      ldsm_x4(bh, b_hi + bo + j * 16 * BPITCH + ks);
+      ldsm_x4(bl, b_lo + bo + j * 16 * BPITCH + ks);
+      mma_tf32x3_add(acc[2 * j], ah, al, bh, bl);
+      mma_tf32x3_add(acc[2 * j + 1], ah, al, bh + 2, bl + 2);
+    }
+  }
+}
+
+// Stage B's depthwise 3x3/1 + BN + LeakyReLU on the f32 stage-A map
+// `amap` ([(TH+2) x (TW+2)][IPITCH]), written as the f32 A tile `at`
+// ([TH*TW][OPITCH]); two channels a thread.
+template <int C, int TH, int TW, int IPITCH, int OPITCH>
+__device__ __forceinline__ void depthwise_s1_f32(const float* amap,
+                                                 float* at, const float* dw,
+                                                 const float* bn, int tid) {
+  constexpr int NP = C / 2, AC = TW + 2;
+  constexpr int STEP = kThreads / NP;
+  const int pr = tid % NP;
+  float2 tap[9];
+#pragma unroll
+  for (int t = 0; t < 9; ++t)
+    tap[t] = make_float2(dw[t * C + 2 * pr], dw[t * C + 2 * pr + 1]);
+  const float2 mul = make_float2(bn[2 * pr], bn[2 * pr + 1]);
+  const float2 add = make_float2(bn[C + 2 * pr], bn[C + 2 * pr + 1]);
+  for (int p = tid / NP; p < TH * TW; p += STEP) {
+    const int r = p / TW, q = p % TW;  // TW is a power of two
+    const float* s = amap + (r * AC + q) * IPITCH + 2 * pr;
+    float s0 = 0.f, s1 = 0.f;
+#pragma unroll
+    for (int dy = 0; dy < 3; ++dy)
+#pragma unroll
+      for (int dx = 0; dx < 3; ++dx) {
+        const float2 v =
+            *reinterpret_cast<const float2*>(s + (dy * AC + dx) * IPITCH);
+        s0 = fmaf(v.x, tap[dy * 3 + dx].x, s0);
+        s1 = fmaf(v.y, tap[dy * 3 + dx].y, s1);
+      }
+    *reinterpret_cast<float2*>(at + p * OPITCH + 2 * pr) =
+        make_float2(leaky(fmaf(s0, mul.x, add.x)),
+                    leaky(fmaf(s1, mul.y, add.y)));
+  }
+}
+
+// Stage B's pointwise GEMM and the segment's output: the f32 [TH*TW x K]
+// A tile times B ([N][BPITCH] hi, then lo at +N*BPITCH) in 3xTF32, BN +
+// LeakyReLU in registers, f32 rows into `ob` ([TH*TW][N + 8]), then
+// 16-byte stores of the pixels inside the output map. Units of one m16
+// tile and N / NSPLIT columns.
+template <int K, int N, int NSPLIT, int TH, int TW, int APITCH, int BPITCH>
+__device__ __forceinline__ void pointwise_out_f32(
+    const float* at, const float* bs, const float* bn, float* ob,
+    float* out, int b, int ty0, int tx0, int ho, int wo, int tid) {
+  constexpr int MT = TH * TW / 16, NW = N / NSPLIT, NF = NW / 8;
+  constexpr int OP = N + 8, PO = N / 4;
+  const int warp = tid >> 5, lane = tid & 31;
+  const int gq = lane >> 2, tq = lane & 3;
+  for (int u = warp; u < MT * NSPLIT; u += kThreads / 32) {
+    const int mt = u / NSPLIT, n0 = (u % NSPLIT) * NW;
+    float acc[NF][4];
+#pragma unroll
+    for (int j = 0; j < NF; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
+    gemm_tf32x3<K, NF, APITCH, BPITCH>(
+        acc, at, bs, bs + N * BPITCH,
+        mt * 16 + (lane & 7) + 8 * ((lane >> 3) & 1), n0, lane);
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      float* row = ob + (mt * 16 + gq + 8 * hh) * OP;
+#pragma unroll
+      for (int j = 0; j < NF; ++j) {
+        const int n = n0 + j * 8 + 2 * tq;
+        *reinterpret_cast<float2*>(row + n) = make_float2(
+            leaky(fmaf(acc[j][2 * hh], bn[n], bn[N + n])),
+            leaky(fmaf(acc[j][2 * hh + 1], bn[n + 1], bn[N + n + 1])));
+      }
+    }
+  }
+  __syncthreads();
+  for (int i = tid; i < TH * TW * PO; i += kThreads) {
+    const int m = i / PO, part = i % PO;  // powers of two
+    const int gy = ty0 + m / TW, gx = tx0 + m % TW;
+    if (gy < ho && gx < wo)
+      *reinterpret_cast<float4*>(
+          out + (((size_t)b * ho + gy) * wo + gx) * N + part * 4) =
+          *reinterpret_cast<const float4*>(ob + m * OP + part * 4);
+  }
+}
+
+// ---- f32 segment 1: conv0 3x3/2 (3 -> 8), then block 1 (8 -> 16) ----------
+
+template <int TH, int TW>
+struct FirstTfSmem {  // bytes
+  static constexpr int kIR = 2 * TH + 5, kIC = 2 * TW + 5;  // 37 x 37
+  static constexpr int kAR = TH + 2, kAC = TW + 2;          // 18 x 18
+  static constexpr int kCells = kAR * kAC;                  // 324
+  static constexpr int kRawPitch = 128;  // a row's 3 * IC bytes + alignment
+  static constexpr int kRaw = kIR * kRawPitch;
+  static constexpr int kXs = (kIR * kIC * 3 * 4 + 15) / 16 * 16;
+  static constexpr int kOb = TH * TW * (16 + 8) * 4;  // over raw and xs
+  static constexpr int kLow = kRaw + kXs > kOb ? kRaw + kXs : kOb;
+  static constexpr int kAPitch = 12;  // block 1's A tile: K = 8 (+ 4)
+  static constexpr int kMap = kCells * 8 * 4;  // conv0's f32 output
+  static constexpr int kTile = TH * TW * kAPitch * 4;
+  static constexpr int kBp = 2 * 16 * kAPitch * 4;
+  static constexpr int kF32 = 16 + 9 * 8 + 16 + 32;
+  static constexpr int kRowOff = (kIR + 3) / 4 * 4;  // ints
+  static constexpr int kBytes =
+      kLow + kMap + kTile + kBp + 4 * kF32 + 4 * kRowOff;
+  static_assert(kRawPitch >= 3 * kIC + 15, "8 pieces cover a row's span");
+  static_assert((kLow | kMap | kTile | kBp | (4 * kF32)) % 16 == 0,
+                "16-byte aligned regions");
+};
+
+// frames [B, H, W, 3] u8 -> out [B, H2, W2, 16] f32. conv0 is a GEMM on
+// the tensor cores (M = the tile's stage-A cells, K = 27 padded to 32,
+// N = 8) whose A rows are gathered from the staged frame minus the means
+// (integers below 256, exact in TF32, so only B is split: two products a
+// step, lo then hi); block 1's depthwise runs on the CUDA cores and its
+// pointwise is a 3xTF32 GEMM (K = 8, N = 16).
+template <int TH, int TW>
+__global__ void __launch_bounds__(kThreads, 4)
+segment_tf32_first(const uint8_t* __restrict__ frames,
+                   const float* __restrict__ w,    // segment 1's f32 pack
+                   const float* __restrict__ sub,  // channel means
+                   const float* __restrict__ w0,   // conv0 [8][32] hi, lo
+                   const float* __restrict__ pw,   // block 1 [16][8] hi, lo
+                   float* __restrict__ out, int hi, int wi, int ho, int wo,
+                   int tiles_x) {
+  using S = FirstTfSmem<TH, TW>;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  unsigned char* raw = smem_raw;                             // [IR][128] u8
+  float* xs = reinterpret_cast<float*>(smem_raw + S::kRaw);  // [IR][IC][3]
+  float* ob = reinterpret_cast<float*>(smem_raw);            // [TH*TW][24]
+  float* amap = reinterpret_cast<float*>(smem_raw + S::kLow);  // [cells][8]
+  float* at = amap + S::kCells * 8;                  // [TH*TW][kAPitch]
+  float* bp = at + TH * TW * S::kAPitch;             // 2 x [16][kAPitch]
+  float* bn0 = bp + 2 * 16 * S::kAPitch;             // mul[8] add[8]
+  float* dwb = bn0 + 16;                             // [9][8]
+  float* bnb1 = dwb + 72;                            // mul[8] add[8]
+  float* bnb2 = bnb1 + 16;                           // mul[16] add[16]
+  int* roff = reinterpret_cast<int*>(bnb2 + 32);     // [IR]: span offsets
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int b = blockIdx.y;
+  const int tile_y = blockIdx.x / tiles_x;
+  const int ty0 = tile_y * TH, tx0 = (blockIdx.x - tile_y * tiles_x) * TW;
+  const int ay0 = ty0 - 1, ax0 = tx0 - 1;          // stage-A origin
+  const int iy0 = 2 * ay0 - 1, ix0 = 2 * ax0 - 1;  // input origin
+
+  // ---- staging: block 1's B operand, then each frame row's span as
+  // aligned 16-byte pieces, as segment_mma_first stages them ---------------
+  stage_split_f32<16, 8, S::kAPitch>(bp, pw, tid);
+  const long long total = (long long)gridDim.y * hi * wi * 3;
+  for (int i = tid; i < S::kIR * 8; i += kThreads) {
+    const int rr = i >> 3, j = i & 7;
+    const int gy = iy0 + rr;
+    const long long s = (((long long)b * hi + gy) * wi + ix0) * 3;
+    const bool rok = (unsigned)gy < (unsigned)hi;
+    if (j == 0) roff[rr] = rok ? (int)(s & 15) : -1;
+    if (!rok) continue;
+    const long long start = ((s >> 4) + j) * 16;
+    const long long left = total - start;
+    const int n = start < 0 ? 0 : left < 0 ? 0 : left > 16 ? 16 : (int)left;
+    cp_async16_n(raw + rr * S::kRawPitch + j * 16,
+                 n > 0 ? frames + start : frames, n);
+  }
+  cp_async_commit();
+  stage_f32(bn0, w + 27 * 8, 16, tid);   // conv0's BN (mul, add)
+  const float* wb = w + 29 * 8;          // block 1: dw [9][8], bn, pw, bn
+  stage_f32(dwb, wb, 88, tid);           // taps and BN, contiguous
+  stage_f32(bnb2, wb + 88 + 8 * 16, 32, tid);
+  const float m0 = __ldg(sub), m1 = __ldg(sub + 1), m2 = __ldg(sub + 2);
+  // conv0's B fragments, b0 (k tq, n gq) and b1 (k tq + 4, n gq) of each
+  // k8 step, hi and lo, held in registers
+  const int gq = lane >> 2, tq = lane & 3;
+  unsigned bfr[2][4][2];  // [hi, lo][ks][b0, b1]
+#pragma unroll
+  for (int p = 0; p < 2; ++p)
+#pragma unroll
+    for (int ks = 0; ks < 4; ++ks)
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+        bfr[p][ks][h] = __float_as_uint(
+            __ldg(w0 + p * 256 + gq * 32 + ks * 8 + tq + 4 * h));
+  cp_async_wait_all();
+  __syncthreads();
+
+  // frame - means as f32 [IR][IC][3], zero off the frame: a thread a
+  // pixel; a thread's next pixel is kThreads on, which moves its row and
+  // column by constants
+  {
+    constexpr int DR = kThreads / S::kIC, DC = kThreads % S::kIC;
+    int rr = tid / S::kIC, px = tid % S::kIC;
+    for (int i = tid; i < S::kIR * S::kIC; i += kThreads) {
+      const int off = roff[rr];
+      const bool ok = off >= 0 && (unsigned)(ix0 + px) < (unsigned)wi;
+      const unsigned char* src =
+          raw + rr * S::kRawPitch + max(off, 0) + 3 * px;
+      float* dst = xs + 3 * i;  // i = rr * IC + px
+      dst[0] = ok ? (float)src[0] - m0 : 0.f;
+      dst[1] = ok ? (float)src[1] - m1 : 0.f;
+      dst[2] = ok ? (float)src[2] - m2 : 0.f;
+      rr += DR;
+      px += DC;
+      if (px >= S::kIC) {
+        px -= S::kIC;
+        ++rr;
+      }
+    }
+  }
+  __syncthreads();
+
+  // ---- conv0 on the tensor cores -> amap [cells][8] f32 ------------------
+  {
+    // offsets, from a cell's first input value, of this lane's A columns
+    // k = ks * 8 + tq (+ 4), k = (dy*3 + dx)*3 + c; columns k >= 27 read
+    // offset 0 against a zero weight
+    int off[4][2];
+#pragma unroll
+    for (int ks = 0; ks < 4; ++ks)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int k = ks * 8 + tq + 4 * h;
+        const int dy = k / 9, dx = (k % 9) / 3, c = k % 3;
+        off[ks][h] = k < 27 ? (dy * S::kIC + dx) * 3 + c : 0;
+      }
+    const float mul0 = bn0[2 * tq], mul1 = bn0[2 * tq + 1];
+    const float add0 = bn0[8 + 2 * tq], add1 = bn0[8 + 2 * tq + 1];
+    for (int mt = warp; mt < (S::kCells + 15) / 16; mt += kThreads / 32) {
+      int base[2];
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {  // once per m tile and row
+        const int m = min(mt * 16 + gq + 8 * hh, S::kCells - 1);
+        const int r = m / S::kAC, q = m - r * S::kAC;
+        base[hh] = (2 * r * S::kIC + 2 * q) * 3;
+      }
+      float acc[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+      for (int ks = 0; ks < 4; ++ks) {
+        unsigned a[4];  // (gq, tq), (gq + 8, tq), (gq, tq + 4), (gq + 8, ..)
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+          a[i] = __float_as_uint(xs[base[i & 1] + off[ks][i >> 1]]);
+        float t[4] = {0.f, 0.f, 0.f, 0.f};  // lo, then hi, from zero
+        mma_tf32(t, a, bfr[1][ks]);
+        mma_tf32(t, a, bfr[0][ks]);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[e] += t[e];
+      }
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        const int m = mt * 16 + gq + 8 * hh;
+        if (m >= S::kCells) continue;
+        const int r = m / S::kAC, q = m - r * S::kAC;
+        const bool ok = (unsigned)(ay0 + r) < (unsigned)ho &&
+                        (unsigned)(ax0 + q) < (unsigned)wo;
+        *reinterpret_cast<float2*>(amap + m * 8 + 2 * tq) = make_float2(
+            ok ? leaky(fmaf(acc[2 * hh], mul0, add0)) : 0.f,
+            ok ? leaky(fmaf(acc[2 * hh + 1], mul1, add1)) : 0.f);
+      }
+    }
+  }
+  __syncthreads();
+
+  // ---- block 1: depthwise (CUDA cores), pointwise (tensor cores) ---------
+  depthwise_s1_f32<8, TH, TW, 8, S::kAPitch>(amap, at, dwb, bnb1, tid);
+  __syncthreads();
+  pointwise_out_f32<8, 16, 1, TH, TW, S::kAPitch, S::kAPitch>(
+      at, bp, bnb2, ob, out, b, ty0, tx0, ho, wo, tid);
+}
+
+// ---- f32 segments 2 and 3: dw 3x3/2 + pw, then dw 3x3/1 + pw --------------
+
+template <int CIN, int CMID, int COUT, int TH, int TW>
+struct TfSmem {  // bytes
+  static constexpr int kIR = 2 * TH + 5, kIC = 2 * TW + 5;
+  static constexpr int kAR = TH + 2, kAC = TW + 2;
+  static constexpr int kCells = kAR * kAC;
+  static constexpr int kAPitch = CIN + 4;   // stage-A A tile
+  static constexpr int kMPitch = CMID + 8;  // stage-A map
+  static constexpr int kBPitch = CMID + 4;  // stage-B A tile
+  static constexpr int kIn = kIR * kIC * CIN * 4;
+  static constexpr int kAb = TH * TW * kBPitch * 4;  // over the input
+  static constexpr int kLow = kIn > kAb ? kIn : kAb;
+  static constexpr int kAa = kCells * kAPitch * 4;
+  static constexpr int kMap = kCells * kMPitch * 4;  // later ob
+  static constexpr int kBa = 2 * CMID * (CIN + 4) * 4;
+  static constexpr int kBb = 2 * COUT * (CMID + 4) * 4;
+  static constexpr int kF32 =
+      9 * CIN + 2 * CIN + 2 * CMID + 9 * CMID + 2 * CMID + 2 * COUT;
+  static constexpr int kBytes = kLow + kAa + kMap + kBa + kBb + 4 * kF32;
+  static_assert((kLow | kAa | kMap | kBa | kBb) % 16 == 0,
+                "16-byte aligned regions");
+  static_assert(TH * TW * (COUT + 8) * 4 <= kMap, "ob fits over the map");
+};
+
+// in [B, Hi, Wi, CIN] f32 -> out [B, Ho, Wo, COUT] f32 (Ho = (Hi+1)/2).
+template <int CIN, int CMID, int COUT, int TH, int TW, int MINB>
+__global__ void __launch_bounds__(kThreads, MINB)
+segment_tf32(const float* __restrict__ in,
+             const float* __restrict__ w,    // the segment's f32 pack
+             const float* __restrict__ pwa,  // [CMID][CIN] hi, lo
+             const float* __restrict__ pwb,  // [COUT][CMID] hi, lo
+             float* __restrict__ out, int hi, int wi, int ho, int wo,
+             int tiles_x) {
+  using S = TfSmem<CIN, CMID, COUT, TH, TW>;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  float* xs = reinterpret_cast<float*>(smem_raw);  // [IR][IC][CIN]
+  float* ab = xs;                                  // later [TH*TW][kBPitch]
+  float* aa = reinterpret_cast<float*>(smem_raw + S::kLow);  // [cells][..]
+  float* amap = aa + S::kCells * S::kAPitch;       // [cells][kMPitch]
+  float* ob = amap;                                // later [TH*TW][COUT+8]
+  float* ba = amap + S::kCells * S::kMPitch;       // 2 x [CMID][CIN + 4]
+  float* bb = ba + 2 * CMID * (CIN + 4);           // 2 x [COUT][CMID + 4]
+  float* dwa = bb + 2 * COUT * (CMID + 4);         // [9][CIN]
+  float* bn1 = dwa + 9 * CIN;                      // mul[CIN], add[CIN]
+  float* bn2 = bn1 + 2 * CIN;                      // mul[CMID], add[CMID]
+  float* dwb = bn2 + 2 * CMID;                     // [9][CMID]
+  float* bnb1 = dwb + 9 * CMID;                    // mul[CMID], add[CMID]
+  float* bnb2 = bnb1 + 2 * CMID;                   // mul[COUT], add[COUT]
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int b = blockIdx.y;
+  const int tile_y = blockIdx.x / tiles_x;
+  const int ty0 = tile_y * TH, tx0 = (blockIdx.x - tile_y * tiles_x) * TW;
+  const int ay0 = ty0 - 1, ax0 = tx0 - 1;          // stage-A origin
+  const int iy0 = 2 * ay0 - 1, ix0 = 2 * ax0 - 1;  // input origin
+
+  // ---- staging: B operands and the input footprint by cp.async -----------
+  stage_split_f32<CMID, CIN, CIN + 4>(ba, pwa, tid);
+  stage_split_f32<COUT, CMID, CMID + 4>(bb, pwb, tid);
+  {
+    // 16-byte pieces of the footprint's rows, zero off the input map; a
+    // thread's next piece is kThreads pieces on, which moves its row and
+    // column by constants
+    constexpr int PP = CIN / 4;           // pieces a pixel
+    constexpr int RP = S::kIC * PP;       // pieces a row
+    constexpr int DR = kThreads / RP, DC = kThreads % RP;
+    int rr = tid / RP, cc = tid % RP;
+    for (int i = tid; i < S::kIR * RP; i += kThreads) {
+      const int px = cc / PP, part = cc % PP;
+      const int gy = iy0 + rr, gx = ix0 + px;
+      const bool ok =
+          (unsigned)gy < (unsigned)hi && (unsigned)gx < (unsigned)wi;
+      const float* src =
+          ok ? in + (((size_t)b * hi + gy) * wi + gx) * CIN + part * 4 : in;
+      cp_async16_zfill(xs + (rr * S::kIC + px) * CIN + part * 4, src, ok);
+      rr += DR;
+      cc += DC;
+      if (cc >= RP) {
+        cc -= RP;
+        ++rr;
+      }
+    }
+  }
+  cp_async_commit();
+  // the f32 pack: dw [9][CIN], mul, add, pw [CIN][CMID], mul, add, then
+  // block B: dw [9][CMID], mul, add, pw [CMID][COUT], mul, add
+  stage_f32(dwa, w, 11 * CIN, tid);  // taps and BN, contiguous
+  stage_f32(bn2, w + 11 * CIN + CIN * CMID, 2 * CMID, tid);
+  const float* wb = w + 11 * CIN + CIN * CMID + 2 * CMID;
+  stage_f32(dwb, wb, 11 * CMID, tid);
+  stage_f32(bnb2, wb + 11 * CMID + CMID * COUT, 2 * COUT, tid);
+  cp_async_wait_all();
+  __syncthreads();
+
+  // ---- stage A: depthwise 3x3/2 + BN + LeakyReLU -> aa -------------------
+  {
+    constexpr int NP = CIN / 2;
+    constexpr int STEP = kThreads / NP;  // cells a pass
+    constexpr int DR = STEP / S::kAC, DQ = STEP % S::kAC;
+    const int pr = tid % NP;
+    float2 tap[9];
+#pragma unroll
+    for (int t = 0; t < 9; ++t)
+      tap[t] = make_float2(dwa[t * CIN + 2 * pr], dwa[t * CIN + 2 * pr + 1]);
+    const float2 mul = make_float2(bn1[2 * pr], bn1[2 * pr + 1]);
+    const float2 add = make_float2(bn1[CIN + 2 * pr], bn1[CIN + 2 * pr + 1]);
+    int cell = tid / NP;
+    int r = cell / S::kAC, q = cell % S::kAC;
+    for (; cell < S::kCells; cell += STEP) {
+      const float* s = xs + (2 * r * S::kIC + 2 * q) * CIN + 2 * pr;
+      float s0 = 0.f, s1 = 0.f;
+#pragma unroll
+      for (int dy = 0; dy < 3; ++dy)
+#pragma unroll
+        for (int dx = 0; dx < 3; ++dx) {
+          const float2 v = *reinterpret_cast<const float2*>(
+              s + (dy * S::kIC + dx) * CIN);
+          s0 = fmaf(v.x, tap[dy * 3 + dx].x, s0);
+          s1 = fmaf(v.y, tap[dy * 3 + dx].y, s1);
+        }
+      *reinterpret_cast<float2*>(aa + cell * S::kAPitch + 2 * pr) =
+          make_float2(leaky(fmaf(s0, mul.x, add.x)),
+                      leaky(fmaf(s1, mul.y, add.y)));
+      r += DR;
+      q += DQ;
+      if (q >= S::kAC) {
+        q -= S::kAC;
+        ++r;
+      }
+    }
+  }
+  __syncthreads();
+
+  // ---- stage A: pointwise GEMM [cells x CIN] x [CIN x CMID] -> f32 amap --
+  // (BN + LeakyReLU, zero off the stage-A map: the next depthwise's
+  // padding); units of one m16 tile and half of N
+  {
+    constexpr int MT = (S::kCells + 15) / 16;
+    constexpr int NH = CMID / 2, NF = NH / 8;
+    const int gq = lane >> 2, tq = lane & 3;
+    for (int u = warp; u < 2 * MT; u += kThreads / 32) {
+      const int mt = u >> 1, n0 = (u & 1) * NH;
+      float acc[NF][4];
+#pragma unroll
+      for (int j = 0; j < NF; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
+      gemm_tf32x3<CIN, NF, S::kAPitch, CIN + 4>(
+          acc, aa, ba, ba + CMID * (CIN + 4),
+          min(mt * 16 + (lane & 7) + 8 * ((lane >> 3) & 1), S::kCells - 1),
+          n0, lane);
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        const int m = mt * 16 + gq + 8 * hh;
+        if (m >= S::kCells) continue;
+        const int r = m / S::kAC, q = m - r * S::kAC;  // once per row
+        const bool ok = (unsigned)(ay0 + r) < (unsigned)ho &&
+                        (unsigned)(ax0 + q) < (unsigned)wo;
+        float* row = amap + m * S::kMPitch;
+#pragma unroll
+        for (int j = 0; j < NF; ++j) {
+          const int n = n0 + j * 8 + 2 * tq;
+          *reinterpret_cast<float2*>(row + n) = make_float2(
+              ok ? leaky(fmaf(acc[j][2 * hh], bn2[n], bn2[CMID + n])) : 0.f,
+              ok ? leaky(fmaf(acc[j][2 * hh + 1], bn2[n + 1],
+                              bn2[CMID + n + 1]))
+                 : 0.f);
+        }
+      }
+    }
+  }
+  __syncthreads();
+
+  // ---- stage B: depthwise 3x3/1 -> ab, pointwise -> out ------------------
+  depthwise_s1_f32<CMID, TH, TW, S::kMPitch, S::kBPitch>(amap, ab, dwb, bnb1,
+                                                         tid);
+  __syncthreads();
+  pointwise_out_f32<CMID, COUT, (TH * TW >= 128 ? 1 : 2), TH, TW,
+                    S::kBPitch, CMID + 4>(ab, bb, bnb2, ob, out, b, ty0,
+                                          tx0, ho, wo, tid);
+}
+
+template <int TH, int TW>
+int launch_tf32_first(const uint8_t* frames, const float* w,
+                      const float* sub, const float* w0, const float* pw,
+                      float* out, int b, int hi, int wi,
+                      cudaStream_t stream) {
+  using S = FirstTfSmem<TH, TW>;
+  auto kern = segment_tf32_first<TH, TW>;
+  cudaError_t e = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, S::kBytes);
+  if (e != cudaSuccess) return (int)e;
+  const int ho = (hi + 1) / 2, wo = (wi + 1) / 2;
+  const int tiles_x = (wo + TW - 1) / TW, tiles_y = (ho + TH - 1) / TH;
+  dim3 grid(tiles_x * tiles_y, b);
+  kern<<<grid, kThreads, S::kBytes, stream>>>(frames, w, sub, w0, pw, out,
+                                              hi, wi, ho, wo, tiles_x);
+  return (int)cudaGetLastError();
+}
+
+template <int CIN, int CMID, int COUT, int TH, int TW, int MINB>
+int launch_tf32(const float* in, const float* w, const float* pwa,
+                const float* pwb, float* out, int b, int hi, int wi,
+                cudaStream_t stream) {
+  using S = TfSmem<CIN, CMID, COUT, TH, TW>;
+  auto kern = segment_tf32<CIN, CMID, COUT, TH, TW, MINB>;
+  cudaError_t e = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, S::kBytes);
+  if (e != cudaSuccess) return (int)e;
+  const int ho = (hi + 1) / 2, wo = (wi + 1) / 2;
+  const int tiles_x = (wo + TW - 1) / TW, tiles_y = (ho + TH - 1) / TH;
+  dim3 grid(tiles_x * tiles_y, b);
+  kern<<<grid, kThreads, S::kBytes, stream>>>(in, w, pwa, pwb, out, hi, wi,
+                                              ho, wo, tiles_x);
+  return (int)cudaGetLastError();
+}
+
+// the three f32 segments; the tiles and their reckoning are in the header
+int run_stage1_tf32(const uint8_t* frames, const float* weights, float* out,
+                    float* s1, float* s2, int b, int h, int w,
+                    cudaStream_t st, int* launches) {
+  using W1 = SegWeights<3, 8, 16, true>;
+  using W2 = SegWeights<16, 32, 32, false>;
+  static_assert(FirstTfSmem<16, 16>::kBytes == 49472, "segment 1 reckoning");
+  static_assert(TfSmem<16, 32, 32, 8, 16>::kBytes == 109888,
+                "segment 2 reckoning");
+  static_assert(TfSmem<32, 64, 64, 8, 8>::kBytes == 158144,
+                "segment 3 reckoning");
+  if (((uintptr_t)frames | (uintptr_t)weights | (uintptr_t)out |
+       (uintptr_t)s1 | (uintptr_t)s2) & 15)
+    return (int)cudaErrorMisalignedAddress;
+  const float* sub = weights;
+  const float* w1 = weights + 4;
+  const float* w2 = w1 + W1::kTotal;
+  const float* w3 = w2 + W2::kTotal;
+  const float* wt = weights + kF32Weights;
+  const int h2 = (h + 1) / 2, w2s = (w + 1) / 2;
+  const int h4 = (h2 + 1) / 2, w4s = (w2s + 1) / 2;
+  int e = launch_tf32_first<16, 16>(frames, w1, sub, wt + kTfConv0,
+                                    wt + kTfPw1, s1, b, h, w, st);
+  if (e) return e;
+  ++*launches;
+  e = launch_tf32<16, 32, 32, 8, 16, 2>(s1, w2, wt + kTfPw2, wt + kTfPw3, s2,
+                                        b, h2, w2s, st);
+  if (e) return e;
+  ++*launches;
+  e = launch_tf32<32, 64, 64, 8, 8, 1>(s2, w3, wt + kTfPw4, wt + kTfPw5, out,
+                                       b, h4, w4s, st);
+  if (e) return e;
+  ++*launches;
+  return 0;
+}
+
 }  // namespace
 
 // frames [B, H, W, 3] uint8 -> out [B, H8, W8, 64] (f32, or bf16 when
 // out_bf16), via scratch1 [B, H2, W2, 16] and scratch2 [B, H4, W4, 32] of
-// the same dtype. weights: the f32 pack [10132]; for bf16 output followed
-// by the bf16 pack of pack_stage1_mma_weights [8192], every pointer
-// 16-byte aligned. Three launches on `stream`, no synchronisation; writes
-// the number of kernels launched to *launches and returns the first CUDA
-// error (0 on success).
+// the same dtype. weights: the f32 pack [10132], followed for bf16 output
+// by the bf16 pack of pack_stage1_mma_weights [16384 bf16] and for f32
+// output by the split pack of pack_stage1_tf32x3_weights [16128 f32], every
+// pointer 16-byte aligned. Three launches on `stream`, no
+// synchronisation; writes the number of kernels launched to *launches and
+// returns the first CUDA error (0 on success).
 extern "C" int vn_mnet_stage1(const uint8_t* frames, const float* weights,
                               void* out, void* scratch1, void* scratch2,
                               int b, int h, int w, int out_bf16,
@@ -984,6 +1370,6 @@ extern "C" int vn_mnet_stage1(const uint8_t* frames, const float* weights,
   if (out_bf16)
     return run_stage1_mma(frames, weights, (bf16*)out, (bf16*)scratch1,
                           (bf16*)scratch2, b, h, w, st, launches);
-  return run_stage1(frames, weights, (float*)out, (float*)scratch1,
-                    (float*)scratch2, b, h, w, st, launches);
+  return run_stage1_tf32(frames, weights, (float*)out, (float*)scratch1,
+                         (float*)scratch2, b, h, w, st, launches);
 }

@@ -107,8 +107,12 @@ def build(name):
         raise RuntimeError(f"IO runtime {name}: {what}; {' '.join(cmd)}\n"
                            f"{out}")
     os.replace(tmp, lib_path)
-    with open(stamp, "w") as fh:
+    # the stamp is renamed into place too: a process that starts its build
+    # meanwhile reads the old stamp or the new one, never a half-written one
+    with open(f"{stamp}.{os.getpid()}.{threading.get_ident()}.tmp",
+              "w") as fh:
         fh.write(digest)
+    os.replace(fh.name, stamp)
     return lib_path
 
 

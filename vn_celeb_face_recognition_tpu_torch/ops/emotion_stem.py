@@ -12,11 +12,13 @@ kernel's taps summed pairwise ({0}, {1, 2}, {3, 4}, {5, 6}, along both
 axes); the normalisation is applied before the zero padding, so the
 padding stays zero in the normalised domain. The CUDA kernel
 ``csrc/emotion_stem.cu`` computes that folded conv with BatchNorm folded
-in, then ReLU and the max pool from shared memory: for bf16 output as an
-implicit GEMM on the tensor cores (``emotion_stem_mma``, B operand from
-``pack_stem_mma_weights``), for f32 output on the CUDA cores
-(``emotion_stem_kernel``). The TPU kernel's subposition GEMM and
-two-faces-per-128-lanes packing are not carried over.
+in, then ReLU and the max pool from shared memory, as an implicit GEMM on
+the tensor cores: for bf16 output in bf16 (``emotion_stem_mma``, B
+operand from ``pack_stem_mma_weights``), for f32 output in 3xTF32, each
+f32 operand split into two TF32 halves and three products a step
+(``emotion_stem_tf32x3``, B operand from ``pack_stem_tf32x3_weights``).
+The TPU kernel's subposition GEMM and two-faces-per-128-lanes packing are
+not carried over.
 
 ``emotion_stem`` takes the plain PyTorch version (resize, normalise,
 cuDNN conv) for CPU tensors only and launches the kernel for CUDA
@@ -55,13 +57,25 @@ def pack_stem_mma_weights(conv1, bn1):
     return fold[:48 * CH].reshape(48, CH).t().to(torch.bfloat16).contiguous()
 
 
-def _kernel_weights(conv1, bn1, dtype):
-    """The buffer the C entry point reads: the f32 fold, followed for bf16
-    output by the packed B operand (its bf16 bits viewed as f32)."""
+@torch.no_grad()
+def pack_stem_tf32x3_weights(conv1, bn1):
+    """The f32 kernel's B operand: the folded 4x4 kernel (BN scale folded
+    in) as [64, 48], n-major with k = (dy*4 + dx)*3 + c contiguous, split
+    into TF32 halves: [2, 64, 48] f32, hi then lo
+    (``kernels.split_tf32``)."""
     fold = fold_stem_weights(conv1, bn1)
-    if dtype != torch.bfloat16:
-        return fold
-    b = pack_stem_mma_weights(conv1, bn1).reshape(-1).view(torch.float32)
+    hi, lo = kernels.split_tf32(fold[:48 * CH].reshape(48, CH).t())
+    return torch.stack([hi, lo]).contiguous()
+
+
+def _kernel_weights(conv1, bn1, dtype):
+    """The buffer the C entry point reads: the f32 fold, followed by the
+    packed B operand (for bf16 output its bf16 bits viewed as f32)."""
+    fold = fold_stem_weights(conv1, bn1)
+    if dtype == torch.bfloat16:
+        b = pack_stem_mma_weights(conv1, bn1).reshape(-1).view(torch.float32)
+    else:
+        b = pack_stem_tf32x3_weights(conv1, bn1).reshape(-1)
     return torch.cat([fold, b])
 
 

@@ -6,12 +6,13 @@ function, the six blocks of stage 1 with inference BatchNorm and
 LeakyReLU(0.1) on frames minus the channel means, [B, H, W, 3] uint8 ->
 [B, ceil(H/8), ceil(W/8), 64] NHWC in the compute dtype. The CUDA kernel
 ``csrc/mnet_stage1.cu`` computes it from the frames directly, in three
-launches (one per stride-2 segment, each counted): for bf16 output with
-the pointwise convolutions and conv0 on the tensor cores
-(``segment_mma_first``, ``segment_mma``; their bf16 weights from
-``pack_stage1_mma_weights``), for f32 output on the CUDA cores
-(``segment_kernel``). The TPU kernels' space-to-depth planes and lane
-rolls are not carried over.
+launches (one per stride-2 segment, each counted), the pointwise
+convolutions and conv0 on the tensor cores: for bf16 output with split
+bf16 operands (``segment_mma_first``, ``segment_mma``; their weights from
+``pack_stage1_mma_weights``), for f32 output in 3xTF32, each f32 operand
+split into two TF32 halves (``segment_tf32_first``, ``segment_tf32``;
+their weights from ``pack_stage1_tf32x3_weights``). The TPU kernels'
+space-to-depth planes and lane rolls are not carried over.
 
 ``mnet_stage1`` takes the plain PyTorch version (the stage's own NCHW
 modules) for CPU tensors only and launches the kernel for CUDA tensors.
@@ -42,6 +43,13 @@ MMA_LAYOUT = {"conv0": (0, 8, 32), "pw1": (512, 16, 16),
               "pw2": (1024, 32, 16), "pw3": (2048, 32, 32),
               "pw4": (4096, 64, 32), "pw5": (8192, 64, 64)}
 N_MMA_WEIGHTS = 16384
+# the f32 kernels' [out][in] matrices (conv0's 27 taps x channels padded to
+# 32; block 1's K = 8 is one k8 step), each as hi = tf32(w) followed by
+# lo = tf32(w - hi): name -> (float offset of hi, out, in)
+TF32_LAYOUT = {"conv0": (0, 8, 32), "pw1": (512, 16, 8),
+               "pw2": (768, 32, 16), "pw3": (1792, 32, 32),
+               "pw4": (3840, 64, 32), "pw5": (7936, 64, 64)}
+N_TF32_WEIGHTS = 16128
 
 
 def _bn_mul_add(bn):
@@ -83,6 +91,38 @@ def pack_stage1_weights(stage1, sub):
     return flat
 
 
+def _gemm_matrices(stage1):
+    """(name, [out, in] f32 matrix) of conv0 (column (ky*3 + kx)*3 + c)
+    and of each pointwise conv, as the tensor-core kernels multiply them."""
+    for i, (kind, _, _, _) in enumerate(STAGE1_SPECS):
+        blk = stage1[i]
+        if kind == "conv_bn":
+            w = blk[0].weight
+            yield "conv0", w.permute(0, 2, 3, 1).reshape(w.shape[0], -1)
+        else:
+            yield f"pw{i}", blk[3].weight[:, :, 0, 0]
+
+
+def _pack_split(stage1, layout, n, dtype, split):
+    """The kernels' B operands as ``layout`` places them, each [out, in]
+    matrix zero-padded to its layout's width and split into (hi, lo) by
+    ``split``: [n] ``dtype``."""
+    flat = torch.zeros(n, dtype=dtype)
+    for name, mat in _gemm_matrices(stage1):
+        at, rows, cols = layout[name]
+        full = torch.zeros(rows, cols)
+        full[:, :mat.shape[1]] = mat.to(torch.float32).cpu()
+        hi, lo = split(full)
+        flat[at:at + 2 * rows * cols] = torch.cat([hi.reshape(-1),
+                                                   lo.reshape(-1)])
+    return flat
+
+
+def _split_bf16(x):
+    hi = x.to(torch.bfloat16)
+    return hi, (x - hi.to(torch.float32)).to(torch.bfloat16)
+
+
 @torch.no_grad()
 def pack_stage1_mma_weights(stage1):
     """Stage-1 modules -> [N_MMA_WEIGHTS] bf16, the B operands of the bf16
@@ -90,32 +130,30 @@ def pack_stage1_mma_weights(stage1):
     (ky*3 + kx)*3 + c (zero from 27), each pointwise conv as [out, in]
     (block 1's 8 inputs padded with zeros to 16); each matrix as its bf16
     rounding hi, then the bf16 rounding of the rest, lo = w - hi."""
-    flat = torch.zeros(N_MMA_WEIGHTS, dtype=torch.bfloat16)
-    for i, (kind, _, _, _) in enumerate(STAGE1_SPECS):
-        blk = stage1[i]
-        if kind == "conv_bn":
-            name, mat = "conv0", blk[0].weight.permute(0, 2, 3, 1).reshape(
-                blk[0].weight.shape[0], -1)
-        else:
-            name, mat = f"pw{i}", blk[3].weight[:, :, 0, 0]
-        at, rows, cols = MMA_LAYOUT[name]
-        full = torch.zeros(rows, cols)
-        full[:, :mat.shape[1]] = mat.to(torch.float32).cpu()
-        hi = full.to(torch.bfloat16)
-        lo = (full - hi.to(torch.float32)).to(torch.bfloat16)
-        flat[at:at + 2 * rows * cols] = torch.cat([hi.reshape(-1),
-                                                   lo.reshape(-1)])
-    return flat
+    return _pack_split(stage1, MMA_LAYOUT, N_MMA_WEIGHTS, torch.bfloat16,
+                       _split_bf16)
+
+
+@torch.no_grad()
+def pack_stage1_tf32x3_weights(stage1):
+    """Stage-1 modules -> [N_TF32_WEIGHTS] f32, the B operands of the f32
+    kernels as ``TF32_LAYOUT`` places them: conv0 as [8, 32] (zero from
+    column 27), each pointwise conv as [out, in]; each matrix split into
+    TF32 halves, hi then lo (``kernels.split_tf32``)."""
+    return _pack_split(stage1, TF32_LAYOUT, N_TF32_WEIGHTS, torch.float32,
+                       kernels.split_tf32)
 
 
 def _kernel_weights(stage1, sub, dtype):
-    """The buffer the C entry point reads: the f32 pack, followed for bf16
-    output by the bf16 pack (its bits viewed as f32)."""
+    """The buffer the C entry point reads: the f32 pack, followed by the
+    kernels' B operands (for bf16 output the bf16 pack, its bits viewed as
+    f32; for f32 output the split f32 pack)."""
     flat = pack_stage1_weights(stage1, sub)
-    if dtype != torch.bfloat16:
-        return flat
-    mma = pack_stage1_mma_weights(stage1).view(torch.float32)
-    return torch.cat([flat, mma])
+    if dtype == torch.bfloat16:
+        gemm = pack_stage1_mma_weights(stage1).view(torch.float32)
+    else:
+        gemm = pack_stage1_tf32x3_weights(stage1)
+    return torch.cat([flat, gemm])
 
 
 def _check(frames):
@@ -149,6 +187,10 @@ def mnet_stage1_kernel(stage1, frames, sub, dtype):
         raise ValueError(f"frames must be uint8, got {frames.dtype}")
     if dtype not in (torch.float32, torch.bfloat16):
         raise ValueError(f"unsupported compute dtype {dtype}")
+    if any(float(m) != int(m) or not 0 <= m <= 255 for m in sub):
+        # conv0's A operand, frame - means, is then exact in bf16 and TF32
+        raise ValueError(f"the kernel takes integer channel means in "
+                         f"[0, 255], got {tuple(sub)}")
     frames = frames.contiguous()
     kernels.require_cuda_tensor(frames, "frames", torch.uint8)
     if frames.data_ptr() % 16:  # the kernel copies 16-byte aligned pieces

@@ -224,3 +224,19 @@ def require_cuda_tensor(t, name, dtype=None):
         raise ValueError(f"{name} must be contiguous")
     if dtype is not None and t.dtype != dtype:
         raise ValueError(f"{name} must be {dtype}, got {t.dtype}")
+
+
+def split_tf32(x):
+    """f32 ``x`` -> (hi, lo) f32 tensors holding TF32 values, as the
+    3xTF32 grids split an operand (``csrc/mma.cuh`` ``split_tf32``): hi is
+    x rounded to 10 mantissa bits, ties away from zero (cvt.rna), and lo
+    is x - hi (exact in f32) rounded the same way."""
+    import torch
+
+    def tf32(t):
+        bits = t.contiguous().view(torch.int32)
+        return ((bits + 0x1000) & -0x2000).view(torch.float32)
+
+    x = x.to(torch.float32)
+    hi = tf32(x)
+    return hi, tf32(x - hi)
