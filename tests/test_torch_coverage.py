@@ -193,6 +193,9 @@ NOT_PORTED = {
     ("native/loader.py", "NativeBatchLoader"): "no JAX pipeline uses it; the "
                                                "trainers read through "
                                                "data.loader",
+    ("utils/tracing.py", "trace"): "the caller's torch.profiler.profile "
+                                   "session is the trace; the spans are "
+                                   "its ranges",
 }
 
 

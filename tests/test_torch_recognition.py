@@ -105,10 +105,10 @@ def test_transform_registry():
         assert out.shape == (1, 8, 8, 3) and out.dtype == torch.float32
 
 
-def test_stage_timer_format_matches_jax(tmp_path):
+def test_stage_timer_format_matches_jax():
     """StageTimer's report and log lines equal the JAX package's for the
-    same totals; trace() writes a torch.profiler trace, and is a no-op
-    without a directory."""
+    same totals; timed_stage times its stage and is a span of a
+    torch.profiler session, and times nothing without a timer."""
     timers = (JTr.StageTimer(), TTr.StageTimer())
     for t in timers:
         for name, secs in (("detect", 0.0123456), ("align", 1.5),
@@ -121,12 +121,15 @@ def test_stage_timer_format_matches_jax(tmp_path):
         t.log(out.append)
     assert lines[0] == lines[1] and len(lines[1]) == 3
     timer = TTr.StageTimer()
-    with TTr.trace(str(tmp_path)), TTr.timed_stage(timer, "stage"):
-        torch.ones(4).sum()
-    assert os.path.exists(tmp_path / "trace.json")
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+        with TTr.timed_stage(timer, "stage"):
+            torch.ones(4).sum()
+    assert "stage" in {e.name for e in prof.events()}
     assert timer.counts["stage"] == 1
-    with TTr.trace(None), TTr.timed_stage(None, "untimed"):
+    with TTr.timed_stage(None, "untimed"):
         pass
+    assert set(timer.counts) == {"stage"}
 
 
 def test_registry_resolves_the_jax_names(monkeypatch, tmp_path):

@@ -50,7 +50,7 @@ def detect_landmarks(detector, rgb_image, fa_model=None, timer=None):
     gate) on the detector's first box, or on the whole image when the
     detector finds none, with ``fa_model``; the detector's own points
     otherwise."""
-    with timed_stage(timer, "detect", detector.device):
+    with timed_stage(timer, "detect"):
         boxes, _, points = detector.inference(rgb_image, landmark=True)
     if fa_model is not None:
         from ..models import fan
@@ -58,7 +58,7 @@ def detect_landmarks(detector, rgb_image, fa_model=None, timer=None):
         box = None
         if len(boxes) > 0:
             box = np.asarray(boxes[0][:4], np.float32)
-        with timed_stage(timer, "fan", fa_model.device):
+        with timed_stage(timer, "fan"):
             pts68 = fa_model.get_landmarks(rgb_image, detected_box=box)[0]
         dst, sane = fan.reduce_to_5_points(pts68)
         return np.asarray(dst, np.float32) if sane else None
@@ -73,7 +73,7 @@ def face_image_from_landmarks(center_points, dst, img_rgb, output_dir,
     import cv2
 
     cv_img = cv2.cvtColor(img_rgb, cv2.COLOR_RGB2BGR)
-    with timed_stage(timer, "warp", device):
+    with timed_stage(timer, "warp"):
         face_resized = alignment(cv_img, center_points, dst,
                                  aligned_size[0], aligned_size[1],
                                  device=device)

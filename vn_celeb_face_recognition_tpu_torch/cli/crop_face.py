@@ -63,7 +63,7 @@ def crop_face(input_dir, output_dir, detection_md, unknown_file,
             unknown_file.write(f"{source}\n")
             stats["no_face"] += 1
             continue
-        with timed_stage(timer, "detect", detection_md.device):
+        with timed_stage(timer, "detect"):
             detections, _ = detection_md.inference(
                 cv2.cvtColor(bgr, cv2.COLOR_BGR2RGB), landmark=False
             )

@@ -230,9 +230,9 @@ def main(argv=None, timer=None):
     history, evals = [], []
     t0 = time.time()
     for i in range(args.steps):
-        with timed_stage(timer, "synth", fit.device):
+        with timed_stage(timer, "synth"):
             batch = fit.batch()
-        with timed_stage(timer, "step", fit.device):
+        with timed_stage(timer, "step"):
             losses = fit.train_step(batch)
         history.append(losses)
         if i % 50 == 0 or i == args.steps - 1:

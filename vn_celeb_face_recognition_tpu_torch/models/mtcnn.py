@@ -37,6 +37,7 @@ from ..ops.nms import check_set_caps
 from ..ops.pyramid_pnet import normalize, pyramid_pnet
 from ..utils.device import select_device
 from ..utils.frames import resize_bilinear, write_png
+from ..utils.tracing import annotate
 from .layers import (
     conv,
     linear,
@@ -370,80 +371,90 @@ class MTCNN:
         k1, kx = caps["pnet_cap_per_scale"], caps["cross_cap"]
         k2, k3, kout = caps["rnet_cap"], caps["onet_cap"], caps["out_cap"]
         thr = self.thresholds
-        # K4: the integral image, shared by stage 1 and both crop stages
-        integ = integral_image(frames)
-        dev = frames.device
-        sat_s1 = torch.zeros((), dtype=torch.int32, device=dev)
+        with annotate("mtcnn.stage1"):
+            # K4: the integral image, shared by stage 1 and both crop stages
+            integ = integral_image(frames)
+            dev = frames.device
+            sat_s1 = torch.zeros((), dtype=torch.int32, device=dev)
 
-        # ---- stage 1: pyramid + PNet (K2) + per-scale NMS(0.5) ----
-        scales = self._scales(h, w)
-        sizes = [(int(h * s + 1), int(w * s + 1)) for s in scales]
-        maps = pyramid_pnet(self.pnet, frames, sizes, integ=integ,
-                            dtype=self.dtype)
-        per_scale = []
-        for scale, (probs1, reg) in zip(scales, maps):
-            boxes, score, reg, valid = _stage1_boxes(probs1, reg, scale,
-                                                     thr[0])
-            if valid.shape[-1] >= k1:
-                sat_s1 = torch.maximum(sat_s1, _max_count(valid))
-            valid, score, boxes, reg = _cap(k1, score, valid, boxes, reg)
-            per_scale.append((_pad_rows(boxes, k1, 0.0),
-                              _pad_rows(score, k1, 0.0),
-                              _pad_rows(reg, k1, 0.0),
-                              _pad_rows(valid, k1, False)))
-        ns = len(scales)
-        boxes, score, reg, valid = (torch.stack(t, dim=1)
-                                    for t in zip(*per_scale))
-        keep = B.batched_nms_keep_mask(
-            boxes.reshape(batch * ns, k1, 4), score.reshape(batch * ns, k1),
-            valid.reshape(batch * ns, k1), 0.5).reshape(batch, ns, k1)
-        valid = (valid & keep).reshape(batch, ns * k1)
-        boxes = boxes.reshape(batch, ns * k1, 4)
-        score = score.reshape(batch, ns * k1)
-        reg = reg.reshape(batch, ns * k1, 4)
+            # ---- stage 1: pyramid + PNet (K2) + per-scale NMS(0.5) ----
+            scales = self._scales(h, w)
+            sizes = [(int(h * s + 1), int(w * s + 1)) for s in scales]
+            maps = pyramid_pnet(self.pnet, frames, sizes, integ=integ,
+                                dtype=self.dtype)
+            per_scale = []
+            for scale, (probs1, reg) in zip(scales, maps):
+                boxes, score, reg, valid = _stage1_boxes(probs1, reg,
+                                                         scale, thr[0])
+                if valid.shape[-1] >= k1:
+                    sat_s1 = torch.maximum(sat_s1, _max_count(valid))
+                valid, score, boxes, reg = _cap(k1, score, valid, boxes,
+                                                reg)
+                per_scale.append((_pad_rows(boxes, k1, 0.0),
+                                  _pad_rows(score, k1, 0.0),
+                                  _pad_rows(reg, k1, 0.0),
+                                  _pad_rows(valid, k1, False)))
+            ns = len(scales)
+            boxes, score, reg, valid = (torch.stack(t, dim=1)
+                                        for t in zip(*per_scale))
+            keep = B.batched_nms_keep_mask(
+                boxes.reshape(batch * ns, k1, 4),
+                score.reshape(batch * ns, k1),
+                valid.reshape(batch * ns, k1), 0.5).reshape(batch, ns, k1)
+            valid = (valid & keep).reshape(batch, ns * k1)
+            boxes = boxes.reshape(batch, ns * k1, 4)
+            score = score.reshape(batch, ns * k1)
+            reg = reg.reshape(batch, ns * k1, 4)
 
-        # ---- cross-scale cap + NMS(0.7) + cap to rnet capacity ----
-        sat_cross = _max_count(valid)
-        valid, score, boxes, reg = _cap(kx, score, valid, boxes, reg)
-        valid = valid & B.batched_nms_keep_mask(boxes, score, valid, 0.7)
-        sat_rnet = _max_count(valid)
-        valid, score, boxes, reg = _cap(k2, score, valid, boxes, reg)
-        boxes = B.rerec(_stage1_bbreg(boxes, reg))
+        with annotate("mtcnn.rnet"):
+            # ---- cross-scale cap + NMS(0.7) + cap to rnet capacity ----
+            sat_cross = _max_count(valid)
+            valid, score, boxes, reg = _cap(kx, score, valid, boxes, reg)
+            valid = valid & B.batched_nms_keep_mask(boxes, score, valid, 0.7)
+            sat_rnet = _max_count(valid)
+            valid, score, boxes, reg = _cap(k2, score, valid, boxes, reg)
+            boxes = B.rerec(_stage1_bbreg(boxes, reg))
 
-        # ---- stage 2: 24x24 crops + RNet ----
-        crops = crop_area_pool(integ, B.clamp_boxes(boxes, w, h), 24)
-        r_reg, r_prob = self._apply(self.rnet, crops.reshape(-1, 24, 24, 3))
-        r_score = r_prob[:, 1].reshape(batch, -1)
-        r_reg = r_reg.reshape(batch, -1, 4)
-        valid = valid & (r_score > thr[1])
-        valid = valid & B.batched_nms_keep_mask(boxes, r_score, valid, 0.7)
-        boxes = B.rerec(B.bbreg(boxes, r_reg))
-        sat_onet = _max_count(valid)
-        valid, score, boxes = _cap(k3, r_score, valid, boxes)
+            # ---- stage 2: 24x24 crops + RNet ----
+            crops = crop_area_pool(integ, B.clamp_boxes(boxes, w, h), 24)
+            r_reg, r_prob = self._apply(self.rnet,
+                                        crops.reshape(-1, 24, 24, 3))
+            r_score = r_prob[:, 1].reshape(batch, -1)
+            r_reg = r_reg.reshape(batch, -1, 4)
+            valid = valid & (r_score > thr[1])
+            valid = valid & B.batched_nms_keep_mask(boxes, r_score, valid,
+                                                    0.7)
+            boxes = B.rerec(B.bbreg(boxes, r_reg))
+            sat_onet = _max_count(valid)
+            valid, score, boxes = _cap(k3, r_score, valid, boxes)
 
-        # ---- stage 3: 48x48 crops + ONet ----
-        crops = crop_area_pool(integ, B.clamp_boxes(boxes, w, h), 48)
-        o_reg, o_landm, o_prob = self._apply(self.onet,
-                                             crops.reshape(-1, 48, 48, 3))
-        o_score = o_prob[:, 1].reshape(batch, -1)
-        o_reg = o_reg.reshape(batch, -1, 4)
-        o_landm = o_landm.reshape(batch, -1, 10)
-        valid = valid & (o_score > thr[2])
+        with annotate("mtcnn.onet"):
+            # ---- stage 3: 48x48 crops + ONet ----
+            crops = crop_area_pool(integ, B.clamp_boxes(boxes, w, h), 48)
+            o_reg, o_landm, o_prob = self._apply(
+                self.onet, crops.reshape(-1, 48, 48, 3))
+            o_score = o_prob[:, 1].reshape(batch, -1)
+            o_reg = o_reg.reshape(batch, -1, 4)
+            o_landm = o_landm.reshape(batch, -1, 10)
+            valid = valid & (o_score > thr[2])
 
-        # landmarks decode before bbreg, on the unclamped boxes
-        bw = boxes[..., 2] - boxes[..., 0] + 1.0
-        bh = boxes[..., 3] - boxes[..., 1] + 1.0
-        pts_x = bw[..., None] * o_landm[..., :5] + boxes[..., 0:1] - 1.0
-        pts_y = bh[..., None] * o_landm[..., 5:10] + boxes[..., 1:2] - 1.0
-        points = torch.stack([pts_x, pts_y], dim=-1)  # [B, K, 5, 2]
+            # landmarks decode before bbreg, on the unclamped boxes
+            bw = boxes[..., 2] - boxes[..., 0] + 1.0
+            bh = boxes[..., 3] - boxes[..., 1] + 1.0
+            pts_x = (bw[..., None] * o_landm[..., :5] + boxes[..., 0:1]
+                     - 1.0)
+            pts_y = (bh[..., None] * o_landm[..., 5:10] + boxes[..., 1:2]
+                     - 1.0)
+            points = torch.stack([pts_x, pts_y], dim=-1)  # [B, K, 5, 2]
 
-        boxes = B.bbreg(boxes, o_reg)
-        valid = valid & B.batched_nms_keep_mask(
-            boxes, o_score, valid, 0.7, offset=1.0, min_mode=True)
-        sat_out = _max_count(valid)
-        valid, score, boxes, points = _cap(kout, o_score, valid, boxes,
-                                           points)
-        sat = torch.stack([sat_s1, sat_cross, sat_rnet, sat_onet, sat_out])
+            boxes = B.bbreg(boxes, o_reg)
+            valid = valid & B.batched_nms_keep_mask(
+                boxes, o_score, valid, 0.7, offset=1.0, min_mode=True)
+            sat_out = _max_count(valid)
+            valid, score, boxes, points = _cap(kout, o_score, valid, boxes,
+                                               points)
+            sat = torch.stack([sat_s1, sat_cross, sat_rnet, sat_onet,
+                               sat_out])
         return boxes, score, points, valid, sat
 
     def _apply(self, net, crops_nhwc):

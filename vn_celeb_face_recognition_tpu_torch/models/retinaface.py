@@ -36,6 +36,7 @@ from ..ops import boxes as B
 from ..ops.nms import check_set_caps
 from ..ops.planar_s1 import STAGE1_SPECS, mnet_stage1
 from ..utils.device import select_device
+from ..utils.tracing import annotate
 from .layers import batch_norm, conv, load_npz, seeded_init_
 from .resnet_common import ResLayer
 
@@ -334,8 +335,15 @@ class RetinaFace:
         """frames [B, H, W, 3] uint8 on the detector's device -> (boxes
         [B, nms_cap, 4] px, scores [B, nms_cap], points [B, nms_cap, 5,
         2] px, valid [B, nms_cap]) after NMS, before ``vis_thres``."""
+        with annotate("retinaface.net"):
+            head = self.net(frames)
+        with annotate("retinaface.select"):
+            return self._decode_nms(frames, *head)
+
+    def _decode_nms(self, frames, loc, conf, landms):
+        """The net's heads -> ``infer_padded``'s outputs: the top
+        ``nms_cap`` anchors over ``conf_thres``, decoded, through NMS."""
         b, h, w = frames.shape[:3]
-        loc, conf, landms = self.net(frames)
         score = conf[..., 1]
         idx, still = B.top_k_select(score, score > self.conf_thres,
                                     self.nms_cap)
@@ -357,11 +365,14 @@ class RetinaFace:
         """The engine's detector contract: (boxes [B, K, 4], scores
         [B, K], points [B, K, 5, 2], valid [B, K]) with K = ``out_cap``
         top detections at or above ``vis_thres``."""
-        boxes, scores, points, valid = self.infer_padded(frames)
-        valid = valid & (scores >= self.vis_thres)
-        idx, still = B.top_k_select(scores, valid, self.out_cap)
-        return (B.take_rows(boxes, idx), torch.gather(scores, 1, idx),
-                B.take_rows(points, idx), still)
+        with annotate("retinaface.net"):
+            head = self.net(frames)
+        with annotate("retinaface.select"):
+            boxes, scores, points, valid = self._decode_nms(frames, *head)
+            valid = valid & (scores >= self.vis_thres)
+            idx, still = B.top_k_select(scores, valid, self.out_cap)
+            return (B.take_rows(boxes, idx), torch.gather(scores, 1, idx),
+                    B.take_rows(points, idx), still)
 
 
     def inference(self, rgb_images, landmark=True):

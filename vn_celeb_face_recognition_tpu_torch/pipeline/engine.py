@@ -28,6 +28,19 @@ Counterpart of ``vn_celeb_face_recognition_tpu/pipeline/engine.py``
 and results scatter back to the padded layout. ``identify`` turns the
 padded outputs into per-frame names on the host.
 
+Spans (``utils.tracing.annotate``, ranges only while a profiler runs):
+``engine.chunk`` around ``process_adaptive``, holding ``engine.upload``
+(the host-to-device copy, when there is one), ``engine.detect`` (the
+detector's own spans inside), ``engine.compact`` (the selection and
+gathers, and again the scatter back), ``engine.align``, ``engine.embed``,
+``engine.classify``, ``engine.emotion``, ``engine.sync`` (the overflow
+read, where the host waits for the chunk) and ``engine.retry`` (a re-run
+at the next bucket); ``engine.identify`` around ``identify``, holding
+``engine.identify.fetch`` (the copies to the host). Counters
+(``utils.tracing.count``): ``engine.slots``, the per-face slots a run
+takes through align, embed and the heads, and ``engine.faces``, the valid
+faces ``identify`` names, from its host copy.
+
 With ``mesh=`` (``parallel.make_mesh``, one process a device) the chunk is
 sharded over the mesh's data axis, as the JAX engine's jitted chunk is:
 every rank is given the whole chunk, pads it with blank frames to a
@@ -59,6 +72,7 @@ from ..ops.similarity import umeyama_similarity
 from ..ops.warp import similarity_warp_frames
 from ..parallel.collectives import all_gather_rows
 from ..parallel.mesh import replicate
+from ..utils.tracing import annotate, count
 from .align import center_point_dict
 
 
@@ -185,66 +199,77 @@ class FusedRecognitionEngine:
 
     @torch.no_grad()
     def _run(self, frames, face_cap):
-        det_out = self.detector.detect_padded(frames)
+        with annotate("engine.detect"):
+            det_out = self.detector.detect_padded(frames)
         boxes, score, points, valid = det_out[:4]
         # MTCNN adds its per-stage saturation counts as a 5th output
         sat = det_out[4] if len(det_out) > 4 else None
         b, k = boxes.shape[:2]
         h, w = frames.shape[1:3]
         dev = boxes.device
-        flat_pts = points.reshape(b * k, 5, 2)
-        flat_boxes = boxes.reshape(b * k, 4)
-        image_idx = torch.arange(b, device=dev,
-                                 dtype=torch.int32).repeat_interleave(k)
-        sel = overflow = None
-        n_data = 1 if self.mesh is None else self.mesh.n_data
-        if face_cap is not None and face_cap < b * k * n_data:
-            sel, overflow = self._select(valid, score, face_cap)
-            n_sel = len(sel)
-            # a rank none of whose slots was selected still runs one slot
-            # (its outputs are dropped), so every rank's outputs have the
-            # same widths
-            run_sel = sel if n_sel else sel.new_zeros(1)
-            flat_pts = flat_pts[run_sel]
-            flat_boxes = flat_boxes[run_sel]
-            image_idx = image_idx[run_sel]
+        with annotate("engine.compact"):
+            flat_pts = points.reshape(b * k, 5, 2)
+            flat_boxes = boxes.reshape(b * k, 4)
+            image_idx = torch.arange(b, device=dev,
+                                     dtype=torch.int32).repeat_interleave(k)
+            sel = overflow = None
+            n_data = 1 if self.mesh is None else self.mesh.n_data
+            if face_cap is not None and face_cap < b * k * n_data:
+                sel, overflow = self._select(valid, score, face_cap)
+                n_sel = len(sel)
+                # a rank none of whose slots was selected still runs one
+                # slot (its outputs are dropped), so every rank's outputs
+                # have the same widths
+                run_sel = sel if n_sel else sel.new_zeros(1)
+                flat_pts = flat_pts[run_sel]
+                flat_boxes = flat_boxes[run_sel]
+                image_idx = image_idx[run_sel]
+        count("engine.slots", flat_pts.shape[0])
 
-        # a fixed window around each face; landmarks shift into it
-        win = min(self.face_window, h, w)
-        cx = (flat_boxes[:, 0] + flat_boxes[:, 2]) * 0.5
-        cy = (flat_boxes[:, 1] + flat_boxes[:, 3]) * 0.5
-        ox = torch.clamp(torch.round(cx - win / 2), 0, w - win)
-        oy = torch.clamp(torch.round(cy - win / 2), 0, h - win)
-        oxi = torch.nan_to_num(ox).to(torch.int32)
-        oyi = torch.nan_to_num(oy).to(torch.int32)
-        local_pts = flat_pts - torch.stack([ox, oy], dim=-1)[:, None, :]
-        mats = umeyama_similarity(local_pts, self.template)
-        # the warp samples each window straight from the uint8 frames
-        faces = similarity_warp_frames(frames, image_idx, oyi, oxi, win,
-                                       mats, self.target_fs)
+        with annotate("engine.align"):
+            # a fixed window around each face; landmarks shift into it
+            win = min(self.face_window, h, w)
+            cx = (flat_boxes[:, 0] + flat_boxes[:, 2]) * 0.5
+            cy = (flat_boxes[:, 1] + flat_boxes[:, 3]) * 0.5
+            ox = torch.clamp(torch.round(cx - win / 2), 0, w - win)
+            oy = torch.clamp(torch.round(cy - win / 2), 0, h - win)
+            oxi = torch.nan_to_num(ox).to(torch.int32)
+            oyi = torch.nan_to_num(oy).to(torch.int32)
+            local_pts = flat_pts - torch.stack([ox, oy], dim=-1)[:, None, :]
+            mats = umeyama_similarity(local_pts, self.template)
+            # the warp samples each window straight from the uint8 frames
+            faces = similarity_warp_frames(frames, image_idx, oyi, oxi, win,
+                                           mats, self.target_fs)
+            x = fixed_image_standardization(faces).to(self.compute_dtype)
 
-        x = fixed_image_standardization(faces).to(self.compute_dtype)
-        emb = self.encoder(x.permute(0, 3, 1, 2)).to(torch.float32)
-        logp = self.classifier(emb)
-        pred = torch.argmax(logp, dim=-1)
-        prob = torch.exp(torch.gather(logp, 1, pred[:, None])[:, 0])
+        with annotate("engine.embed"):
+            emb = self.encoder(x.permute(0, 3, 1, 2)).to(torch.float32)
+        with annotate("engine.classify"):
+            logp = self.classifier(emb)
+            pred = torch.argmax(logp, dim=-1)
+            prob = torch.exp(torch.gather(logp, 1, pred[:, None])[:, 0])
         per_face = {"pred": pred, "prob": prob, "embeddings": emb}
         if self.emotion is not None:
-            logits, _ = self._emotion_logits(faces)
-            eprob = torch.softmax(logits.to(torch.float32), dim=-1)
-            # stable descending sort: ties keep the lower index first,
-            # as jax.lax.top_k does (torch.topk leaves them unordered)
-            top_p, top_idx = torch.sort(eprob, dim=-1, descending=True,
-                                        stable=True)
+            with annotate("engine.emotion"):
+                logits, _ = self._emotion_logits(faces)
+                eprob = torch.softmax(logits.to(torch.float32), dim=-1)
+                # stable descending sort: ties keep the lower index first,
+                # as jax.lax.top_k does (torch.topk leaves them unordered)
+                top_p, top_idx = torch.sort(eprob, dim=-1, descending=True,
+                                            stable=True)
             per_face["emotion_idx"] = top_idx[:, :self.emotion_topk]
             per_face["emotion_prob"] = top_p[:, :self.emotion_topk]
         out = {"boxes": boxes, "scores": score, "points": points,
                "valid": valid}
-        for name, v in per_face.items():
-            if sel is not None:
+        if sel is not None:
+            with annotate("engine.compact"):
                 # scatter compacted results back to the padded layout
-                v = torch.zeros((b * k,) + v.shape[1:], dtype=v.dtype,
-                                device=dev).index_copy(0, sel, v[:n_sel])
+                per_face = {
+                    name: torch.zeros((b * k,) + v.shape[1:], dtype=v.dtype,
+                                      device=dev).index_copy(0, sel,
+                                                             v[:n_sel])
+                    for name, v in per_face.items()}
+        for name, v in per_face.items():
             out[name] = v.reshape((b, k) + v.shape[1:])
         if self.mesh is not None:
             group = self.mesh.data_group
@@ -273,8 +298,12 @@ class FusedRecognitionEngine:
         is (``process`` moves this rank's block alone)."""
         if isinstance(frames_u8, np.ndarray):
             frames_u8 = torch.from_numpy(np.ascontiguousarray(frames_u8))
-        return frames_u8 if self.mesh is not None else frames_u8.to(
-            self.device)
+        if self.mesh is not None:
+            return frames_u8
+        if frames_u8.device.type == torch.device(self.device).type:
+            return frames_u8.to(self.device)
+        with annotate("engine.upload"):
+            return frames_u8.to(self.device)
 
     def process(self, frames_u8):
         """frames_u8: numpy array or tensor [B, H, W, 3] uint8 (under a
@@ -306,25 +335,28 @@ class FusedRecognitionEngine:
         """``process`` plus an overflow check (one scalar read) and a
         re-run of the same chunk at the next bucket up, so no valid face
         is dropped while a bigger bucket exists."""
-        frames = self._as_frames(frames_u8)
-        out = self.process(frames)
-        if not self.face_buckets or len(self.face_buckets) < 2:
-            return out
-        retries = (len(self.face_buckets) if max_retries is None
-                   else max_retries)
-        for _ in range(retries):
-            cap = out.get("_face_cap_used")
-            if cap is None or "face_cap_overflow" not in out:
-                return out
-            overflow = int(out["face_cap_overflow"])
-            if overflow == 0:
-                return out
-            self._face_hint = cap + overflow
-            bp = self._padded_batch(frames.shape[0])
-            if self._select_cap(bp * self.detector.out_cap) == cap:
-                return out  # already at the top usable bucket
+        with annotate("engine.chunk"):
+            frames = self._as_frames(frames_u8)
             out = self.process(frames)
-        return out
+            if not self.face_buckets or len(self.face_buckets) < 2:
+                return out
+            retries = (len(self.face_buckets) if max_retries is None
+                       else max_retries)
+            for _ in range(retries):
+                cap = out.get("_face_cap_used")
+                if cap is None or "face_cap_overflow" not in out:
+                    return out
+                with annotate("engine.sync"):
+                    overflow = int(out["face_cap_overflow"])
+                if overflow == 0:
+                    return out
+                self._face_hint = cap + overflow
+                bp = self._padded_batch(frames.shape[0])
+                if self._select_cap(bp * self.detector.out_cap) == cap:
+                    return out  # already at the top usable bucket
+                with annotate("engine.retry"):
+                    out = self.process(frames)
+            return out
 
     def observe(self, outputs):
         """Take the chunk's valid-face count as the hint for the next
@@ -340,42 +372,45 @@ class FusedRecognitionEngine:
         ``threshold`` is a float or a per-class dict keyed by
         ``str(label)``; a face under its threshold, or with an unknown
         label, is "Unknown"."""
-        outputs = dict(outputs)
-        cap_used = outputs.pop("_face_cap_used", None)
-        frame_hw = outputs.pop("_frame_hw", None)
-        outs = {k: v.cpu().numpy() for k, v in outputs.items()}
-        if "sat_counts" in outs and hasattr(self.detector,
-                                            "warn_capacity_saturation"):
-            self.detector.warn_capacity_saturation(outs["sat_counts"],
-                                                   hw=frame_hw)
-        overflow = int(outs.get("face_cap_overflow", 0))
-        self.observe(outputs)
-        if overflow > 0:
-            warnings.warn(
-                f"engine face_cap={cap_used or self.face_cap} overflowed "
-                f"by {overflow} valid faces this chunk — lowest-score "
-                "faces were dropped; raise face_cap or use "
-                "process_adaptive() for a re-run at the next bucket.",
-                stacklevel=2)
-        has_emotion = "emotion_idx" in outs
-        results = []
-        for i in range(outs["valid"].shape[0]):
-            frame_names, frame_boxes = [], []
-            emotion_idx, emotion_prob = [], []
-            for j in np.nonzero(outs["valid"][i])[0]:
-                pred = int(outs["pred"][i][j])
-                prob = float(outs["prob"][i][j])
-                thr = (threshold[str(pred)] if isinstance(threshold, dict)
-                       else threshold)
-                frame_names.append("Unknown" if prob < thr
-                                   else names.get(pred, "Unknown"))
-                frame_boxes.append(outs["boxes"][i][j])
+        with annotate("engine.identify"):
+            outputs = dict(outputs)
+            cap_used = outputs.pop("_face_cap_used", None)
+            frame_hw = outputs.pop("_frame_hw", None)
+            with annotate("engine.identify.fetch"):
+                outs = {k: v.cpu().numpy() for k, v in outputs.items()}
+            count("engine.faces", int(np.count_nonzero(outs["valid"])))
+            if "sat_counts" in outs and hasattr(self.detector,
+                                                "warn_capacity_saturation"):
+                self.detector.warn_capacity_saturation(outs["sat_counts"],
+                                                       hw=frame_hw)
+            overflow = int(outs.get("face_cap_overflow", 0))
+            self.observe(outputs)
+            if overflow > 0:
+                warnings.warn(
+                    f"engine face_cap={cap_used or self.face_cap} overflowed "
+                    f"by {overflow} valid faces this chunk — lowest-score "
+                    "faces were dropped; raise face_cap or use "
+                    "process_adaptive() for a re-run at the next bucket.",
+                    stacklevel=2)
+            has_emotion = "emotion_idx" in outs
+            results = []
+            for i in range(outs["valid"].shape[0]):
+                frame_names, frame_boxes = [], []
+                emotion_idx, emotion_prob = [], []
+                for j in np.nonzero(outs["valid"][i])[0]:
+                    pred = int(outs["pred"][i][j])
+                    prob = float(outs["prob"][i][j])
+                    thr = (threshold[str(pred)] if isinstance(threshold, dict)
+                           else threshold)
+                    frame_names.append("Unknown" if prob < thr
+                                       else names.get(pred, "Unknown"))
+                    frame_boxes.append(outs["boxes"][i][j])
+                    if has_emotion:
+                        emotion_idx.append(outs["emotion_idx"][i][j])
+                        emotion_prob.append(outs["emotion_prob"][i][j])
                 if has_emotion:
-                    emotion_idx.append(outs["emotion_idx"][i][j])
-                    emotion_prob.append(outs["emotion_prob"][i][j])
-            if has_emotion:
-                results.append((frame_names, frame_boxes, emotion_idx,
-                                emotion_prob))
-            else:
-                results.append((frame_names, frame_boxes))
-        return results
+                    results.append((frame_names, frame_boxes, emotion_idx,
+                                    emotion_prob))
+                else:
+                    results.append((frame_names, frame_boxes))
+            return results

@@ -26,8 +26,8 @@ with its signatures and numpy return types:
     dict.
 
 The library's stages (detect, fan, align, embed, classify, emotion) are
-labelled for ``torch.profiler`` and NVTX, and timed by a
-``utils.tracing.StageTimer`` when one is passed as ``timer``.
+spans for ``torch.profiler`` (NVTX ranges under ``emit_nvtx``), and timed
+by a ``utils.tracing.StageTimer`` when one is passed as ``timer``.
 
 The landmarks are the detector's own 5 points or, in
 ``sequential_detect_and_align`` with ``fa_model`` (a
@@ -272,9 +272,9 @@ def recognize_celeb(bth_alg_face_list, device, emb_model, classify_model,
     tf = transforms if transforms is not None else transforms_dict["default"]
     if emb_model.transform is None:
         emb_model.transform = tf
-    with timed_stage(timer, "embed", emb_model.device):
+    with timed_stage(timer, "embed"):
         embeddings = find_embedding(faces, emb_model)
-    with timed_stage(timer, "classify", classify_model.device):
+    with timed_stage(timer, "classify"):
         names = identify_person(embeddings, classify_model, label2name_df,
                                 threshold)
     return _split(names, bth_alg_face_list)
@@ -291,7 +291,7 @@ def recognize_emotion(bth_alg_face_list, device, emt_model, transforms,
         return empty, [[] for _ in bth_alg_face_list]
     if emt_model.transform is None:
         emt_model.transform = transforms or transforms_dict["emotion_inf"]
-    with timed_stage(timer, "emotion", emt_model.device):
+    with timed_stage(timer, "emotion"):
         emotions_cls, probs = find_emotion(faces, emt_model, topk)
     bth_emotions = [map_label_func(c) if len(c) else []
                     for c in _split(emotions_cls, bth_alg_face_list)]
@@ -392,7 +392,7 @@ def landmarks_geometrically_sane(pts):
 def _detect(rgb_images, detection_md, timer):
     if isinstance(rgb_images, np.ndarray) and rgb_images.ndim == 3:
         rgb_images = [rgb_images]
-    with timed_stage(timer, "detect", detection_md.device):
+    with timed_stage(timer, "detect"):
         bth_boxes, _, bth_landmarks = detection_md.inference(
             rgb_images, landmark=True)
     return rgb_images, bth_boxes, bth_landmarks
@@ -402,7 +402,7 @@ def _align_all(crops, landmarks, per_image, center_point, target_fs,
                device, timer):
     """Align every gathered crop in one call and cut the faces back into
     per-image lists (``per_image`` holds each image's face count)."""
-    with timed_stage(timer, "align", device):
+    with timed_stage(timer, "align"):
         faces = align_crops(crops, np.asarray(landmarks, np.float32).reshape(
             -1, 5, 2), center_point, target_fs, device=device)
     out, counter = [], 0
@@ -422,7 +422,7 @@ def _fan_landmarks(fa_model, faces, timer):
         return []
     boxes = np.asarray([[0.0, 0.0, float(f.shape[1]), float(f.shape[0])]
                         for f in faces], np.float32)
-    with timed_stage(timer, "fan", fa_model.device):
+    with timed_stage(timer, "fan"):
         points = fa_model.landmarks_for_boxes(pad_windows(faces), boxes)
     return [fan.reduce_to_5_points(p) for p in points]
 

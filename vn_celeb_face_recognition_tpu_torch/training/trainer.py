@@ -201,7 +201,7 @@ class BaseTrainer:
         image batch comes out NCHW, the modules' layout."""
         tf = self.train_transform if train else self.val_transform
         if tf is not None:
-            with annotate("augment" if train else "transform", self.device):
+            with annotate("augment" if train else "transform"):
                 data = tf(data, self.generator)
         return data.permute(0, 3, 1, 2) if data.dim() == 4 else data
 
@@ -251,7 +251,7 @@ class BaseTrainer:
         running statistics), this rank's share of the loss over ``total``
         weight and its gradients, summed over the data axis under a mesh.
         Returns (loss share, model output)."""
-        with annotate("forward_backward", self.device):
+        with annotate("forward_backward"):
             self.model.train()
             out = self.model(x, generator=self.generator)
             loss = weighted_share(self.loss_fn(out, target, weight), weight,
@@ -262,7 +262,7 @@ class BaseTrainer:
             return loss, out.detach()
 
     def _optimizer_step(self):
-        with annotate("optimizer", self.device):
+        with annotate("optimizer"):
             self.optimizer.step()
 
     @torch.no_grad()
@@ -530,5 +530,5 @@ class AugClassificationTrainer(ClassificationTrainer):
             replicate(self.mesh, self.encoder)
 
     def _encode(self, x):
-        with annotate("encode", self.device), torch.no_grad():
+        with annotate("encode"), torch.no_grad():
             return self.encoder(x).to(torch.float32)

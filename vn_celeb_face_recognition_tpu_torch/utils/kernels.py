@@ -11,7 +11,8 @@ the compiler's output; nothing falls back to another implementation.
 
 Each kernel wrapper counts its launches (``count_launch``), one per grid
 the card runs, right where it launches its kernel and nowhere else, so a
-run can show that the main path really went through the kernels.
+run can show that the main path really went through the kernels. The
+counts live in ``utils.tracing``'s one counter store.
 """
 
 import ctypes
@@ -21,6 +22,8 @@ import shutil
 import subprocess
 import threading
 import time
+
+from . import tracing
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
 CSRC_DIR = os.path.join(os.path.dirname(_HERE), "csrc")
@@ -68,23 +71,29 @@ SIGNATURES = {
 }
 
 
-_LAUNCHES = {"pnet_chain": 0, "similarity_warp": 0, "mnet_stage1": 0,
-             "emotion_stem": 0, "bottleneck_chain": 0, "nms_keep_mask": 0,
-             "crop_area_resize": 0, "crop_net_trunk": 0}
+# the kernels whose launches are counted, each under ``launches.<name>``
+# in ``utils.tracing``'s counter store
+LAUNCHED = ("pnet_chain", "similarity_warp", "mnet_stage1", "emotion_stem",
+            "bottleneck_chain", "nms_keep_mask", "crop_area_resize",
+            "crop_net_trunk")
 
 
 def count_launch(name, n=1):
     """Add ``n`` kernel launches of ``name`` (one per grid launched)."""
-    _LAUNCHES[name] += n
+    if name not in LAUNCHED:
+        raise KeyError(name)
+    tracing.count(f"launches.{name}", n)
 
 
 def reset_launch_counts():
-    for name in _LAUNCHES:
-        _LAUNCHES[name] = 0
+    """Clear the counter store (``tracing.reset_counts``): the launch
+    counts and every other counter of the process."""
+    tracing.reset_counts()
 
 
 def launch_counts():
-    return dict(_LAUNCHES)
+    c = tracing.counts()
+    return {name: c.get(f"launches.{name}", 0) for name in LAUNCHED}
 
 
 def find_nvcc():

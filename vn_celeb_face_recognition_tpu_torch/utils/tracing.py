@@ -1,4 +1,4 @@
-"""Tracing and per-stage host timers.
+"""Per-stage host timers, spans and counters.
 
 Counterpart of ``vn_celeb_face_recognition_tpu/utils/tracing.py``:
 
@@ -6,11 +6,16 @@ Counterpart of ``vn_celeb_face_recognition_tpu/utils/tracing.py``:
     per-layer host breakdown of the recognition library (detect, align,
     embed, classify, emotion); ``report`` and ``log`` print what the JAX
     package's do;
-  * ``trace(log_dir)``: a ``torch.profiler`` trace of a region, written as
-    a Chrome trace under ``log_dir`` (a no-op without a directory);
-  * ``annotate(name)``: labels a region in that trace, and on a CUDA device
-    also pushes an NVTX range; ``timed_stage(timer, name)`` adds a
-    ``StageTimer`` stage to it when a timer is given.
+  * ``annotate(name)``: a span, a ``torch.profiler.record_function`` range
+    around the region, on the profiler's clock beside the device events it
+    launches (under ``torch.autograd.profiler.emit_nvtx`` an NVTX range).
+    With no profiler session running it enters nothing, so a span left in
+    a hot loop costs one flag read; ``timed_stage(timer, name)`` adds a
+    ``StageTimer`` stage to it when a timer is given;
+  * ``count(name, n)``, ``counts()``, ``reset_counts()``: the process's one
+    store of counters (``utils.kernels``' kernel launch counts are kept
+    here too). A counter takes values the host already holds, such as
+    shapes or a host copy, and never reads the device.
 
 A stage's time is host time: a region that launches device work and does
 not wait for it measures the enqueue. The library's stages end in a copy to
@@ -18,7 +23,6 @@ the host, which waits.
 """
 
 import contextlib
-import os
 import time
 from collections import defaultdict
 
@@ -61,47 +65,42 @@ class StageTimer:
             )
 
 
-@contextlib.contextmanager
-def trace(log_dir=None):
-    """Trace the region with ``torch.profiler`` (the CPU, and the card when
-    one is visible) and write ``trace.json`` under ``log_dir``; a no-op
-    when ``log_dir`` is None."""
-    if not log_dir:
-        yield
-        return
-    from torch.profiler import ProfilerActivity, profile
+_NO_SPAN = contextlib.nullcontext()
 
-    activities = [ProfilerActivity.CPU]
-    if torch.cuda.is_available():
-        activities.append(ProfilerActivity.CUDA)
-    os.makedirs(log_dir, exist_ok=True)
-    with profile(activities=activities) as prof:
-        yield
-    prof.export_chrome_trace(os.path.join(log_dir, "trace.json"))
+
+def annotate(name):
+    """The span ``name`` around the region: a ``record_function`` range
+    while a profiler (``torch.profiler`` or ``emit_nvtx``) is running,
+    nothing otherwise."""
+    if torch.autograd._profiler_enabled():
+        return torch.profiler.record_function(name)
+    return _NO_SPAN
 
 
 @contextlib.contextmanager
-def annotate(name, device=None):
-    """Label the region ``name`` in a ``torch.profiler`` trace; on a CUDA
-    ``device`` also push an NVTX range around it."""
-    nvtx = device is not None and torch.device(device).type == "cuda"
-    with torch.profiler.record_function(name):
-        if nvtx:
-            torch.cuda.nvtx.range_push(name)
-        try:
-            yield
-        finally:
-            if nvtx:
-                torch.cuda.nvtx.range_pop()
-
-
-@contextlib.contextmanager
-def timed_stage(timer, name, device=None):
-    """``annotate(name, device)`` around the region, timed as stage
-    ``name`` of ``timer`` when one is given."""
-    with annotate(name, device):
+def timed_stage(timer, name):
+    """``annotate(name)`` around the region, timed as stage ``name`` of
+    ``timer`` when one is given."""
+    with annotate(name):
         if timer is None:
             yield
         else:
             with timer.stage(name):
                 yield
+
+
+_COUNTS = defaultdict(int)
+
+
+def count(name, n=1):
+    """Add ``n`` to the counter ``name``."""
+    _COUNTS[name] += n
+
+
+def counts():
+    """Every counter of the process by name."""
+    return dict(_COUNTS)
+
+
+def reset_counts():
+    _COUNTS.clear()
